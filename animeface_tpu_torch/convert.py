@@ -1,0 +1,98 @@
+'''JAX package parameters -> the port's `state_dict`, for StyleGAN2 G and D.
+
+Input: a flax params tree (nested dicts of numpy arrays, as
+`jax.device_get(variables['params'])` gives). Output: a dict of float32
+torch tensors for `Generator.load_state_dict` / `Discriminator.load_state_dict`.
+
+Mapping (flax NHWC/HWIO -> torch NCHW/OIHW):
+  dense kernel [in, out]       -> weight [out, in]
+  conv kernel HWIO             -> weight OIHW
+  const [1, 4, 4, S]           -> const [1, S, 4, 4]
+  D's last-but-one dense kernel reads a flattened NHWC [4, 4, C] map; its
+  rows are permuted to the NCHW flatten order [C, 4, 4].
+The equalized-lr factor gain/sqrt(fan) is applied at run time on both sides,
+so raw values carry over unchanged.
+
+Generator:                                 port
+  map/ELRDense_i                           map.layers.i
+  const                                    const
+  synthesis/input                          synthesis.input
+  synthesis/input_to_image/ModulatedConv_0 synthesis.input_to_image.conv
+  synthesis/StyleBlock_i/ModulatedConv_j   synthesis.blocks.i.convs.j
+  synthesis/ToImage_i/ModulatedConv_0      synthesis.to_images.i.conv
+Discriminator:
+  ELRConv_0                                from_rgb
+  DBlock_i/ELRConv_j (j < last)            blocks.i.convs.j
+  DBlock_i/ELRConv_<last> (the 1x1 skip)   blocks.i.skip
+  ELRConv_1                                conv
+  ELRDense_0 / ELRDense_1                  fc / out
+'''
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _dense(p, prefix, out):
+    out[f'{prefix}.weight'] = _t(np.asarray(p['kernel']).T)
+    if 'bias' in p:
+        out[f'{prefix}.bias'] = _t(p['bias'])
+
+
+def _conv(p, prefix, out):
+    out[f'{prefix}.weight'] = _t(np.asarray(p['kernel']).transpose(3, 2, 0, 1))
+    if 'bias' in p:
+        out[f'{prefix}.bias'] = _t(p['bias'])
+
+
+def _modconv(p, prefix, out):
+    _conv(p, prefix, out)
+    _dense(p['affine'], f'{prefix}.affine', out)
+
+
+def _indexed(tree, name):
+    '''Children `name_0, name_1, ...` in index order.'''
+    keys = sorted((k for k in tree if k.startswith(name + '_')),
+                  key=lambda k: int(k.rsplit('_', 1)[1]))
+    return [tree[k] for k in keys]
+
+
+def convert_generator(params) -> dict:
+    out = {}
+    for i, p in enumerate(_indexed(params['map'], 'ELRDense')):
+        _dense(p, f'map.layers.{i}', out)
+    out['const'] = _t(np.asarray(params['const']).transpose(0, 3, 1, 2))
+    syn = params['synthesis']
+    _modconv(syn['input'], 'synthesis.input', out)
+    _modconv(syn['input_to_image']['ModulatedConv_0'],
+             'synthesis.input_to_image.conv', out)
+    for i, block in enumerate(_indexed(syn, 'StyleBlock')):
+        for j, p in enumerate(_indexed(block, 'ModulatedConv')):
+            _modconv(p, f'synthesis.blocks.{i}.convs.{j}', out)
+    for i, to_image in enumerate(_indexed(syn, 'ToImage')):
+        _modconv(to_image['ModulatedConv_0'], f'synthesis.to_images.{i}.conv', out)
+    return out
+
+
+def convert_discriminator(params) -> dict:
+    out = {}
+    convs = _indexed(params, 'ELRConv')
+    _conv(convs[0], 'from_rgb', out)
+    _conv(convs[1], 'conv', out)
+    for i, block in enumerate(_indexed(params, 'DBlock')):
+        bconvs = _indexed(block, 'ELRConv')
+        for j, p in enumerate(bconvs[:-1]):
+            _conv(p, f'blocks.{i}.convs.{j}', out)
+        _conv(bconvs[-1], f'blocks.{i}.skip', out)
+    fc, last = _indexed(params, 'ELRDense')
+    k = np.asarray(fc['kernel'])                               # [4*4*C, out]
+    C = k.shape[0] // 16
+    k = k.reshape(4, 4, C, -1).transpose(2, 0, 1, 3).reshape(16 * C, -1)
+    _dense(dict(fc, kernel=k), 'fc', out)
+    _dense(last, 'out', out)
+    return out
