@@ -1,6 +1,7 @@
 '''animeface_tpu_torch — the PyTorch/CUDA port of animeface_tpu.
 
-It runs the StyleGAN2-ADA training step on an NVIDIA H100. The JAX package
+It runs the StyleGAN2-ADA training step and the ADA recipe's step (StyleGAN3
+with the AugmentPipe) on an NVIDIA H100. The JAX package
 `animeface_tpu` is the reference; nothing here imports it or JAX. Every
 kernel that the JAX package wrote in Pallas for the TPU is a hand-written
 CUDA kernel here (`csrc/`), built by `nvcc` at first use (`_build.py`).

@@ -1,4 +1,5 @@
-'''JAX package parameters -> the port's `state_dict`, for StyleGAN2 G and D.
+'''JAX package parameters -> the port's `state_dict`, for StyleGAN2 and
+StyleGAN3 G and D.
 
 Input: a flax params tree (nested dicts of numpy arrays, as
 `jax.device_get(variables['params'])` gives). Output: a dict of float32
@@ -12,6 +13,9 @@ Mapping (flax NHWC/HWIO -> torch NCHW/OIHW):
   rows are permuted to the NCHW flatten order [C, 4, 4].
 The equalized-lr factor gain/sqrt(fan) is applied at run time on both sides,
 so raw values carry over unchanged.
+
+StyleGAN2 below; StyleGAN3 (`convert_stylegan3_generator`,
+`convert_stylegan3_discriminator`) after it.
 
 Generator:                                 port
   map/ELRDense_i                           map.layers.i
@@ -94,5 +98,54 @@ def convert_discriminator(params) -> dict:
     C = k.shape[0] // 16
     k = k.reshape(4, 4, C, -1).transpose(2, 0, 1, 3).reshape(16 * C, -1)
     _dense(dict(fc, kernel=k), 'fc', out)
+    _dense(last, 'out', out)
+    return out
+
+
+# ---------------------------------------------------------------- StyleGAN3
+#
+# Generator (`params` and `moments` collections):     port
+#   map/Linear_i                                      map.layers.i
+#   moments map/w_avg                                 map.w_avg
+#   synthesis/input/{affine, weight}                  synthesis.input.{affine, weight}
+#   moments synthesis/input/{freqs, phases}           synthesis.input.{freqs, phases}
+#   synthesis/net_i/{affine, bias, conv}              synthesis.net.i.{affine, bias, conv}
+#   moments synthesis/net_i/magnitude_ema             synthesis.net.i.magnitude_ema
+# Discriminator:
+#   ConvAct_0 / ConvAct_1                             from_rgb / conv
+#   ResBlock_i/ConvAct_{0, 1, 2}                      blocks.i.{conv1, conv2, skip}
+#   Linear_0 / Linear_1                               fc / out
+# The port's D flattens its last map in the JAX (H, W, C) order, so the
+# dense kernels carry over as they are.
+
+def convert_stylegan3_generator(params, moments) -> dict:
+    out = {}
+    for i, p in enumerate(_indexed(params['map'], 'Linear')):
+        _dense(p, f'map.layers.{i}', out)
+    out['map.w_avg'] = _t(moments['map']['w_avg'])
+    syn, syn_m = params['synthesis'], moments['synthesis']
+    _dense(syn['input']['affine'], 'synthesis.input.affine', out)
+    out['synthesis.input.weight'] = _t(syn['input']['weight'])
+    out['synthesis.input.freqs'] = _t(syn_m['input']['freqs'])
+    out['synthesis.input.phases'] = _t(syn_m['input']['phases'])
+    for i, layer in enumerate(_indexed(syn, 'net')):
+        prefix = f'synthesis.net.{i}'
+        _dense(layer['affine'], f'{prefix}.affine', out)
+        out[f'{prefix}.bias'] = _t(layer['bias'])
+        _conv(layer['conv'], f'{prefix}.conv', out)
+        out[f'{prefix}.magnitude_ema'] = _t(syn_m[f'net_{i}']['magnitude_ema'])
+    return out
+
+
+def convert_stylegan3_discriminator(params) -> dict:
+    out = {}
+    convs = _indexed(params, 'ConvAct')
+    _conv(convs[0], 'from_rgb', out)
+    _conv(convs[1], 'conv', out)
+    for i, block in enumerate(_indexed(params, 'ResBlock')):
+        for name, p in zip(('conv1', 'conv2', 'skip'), _indexed(block, 'ConvAct')):
+            _conv(p, f'blocks.{i}.{name}', out)
+    fc, last = _indexed(params, 'Linear')
+    _dense(fc, 'fc', out)
     _dense(last, 'out', out)
     return out

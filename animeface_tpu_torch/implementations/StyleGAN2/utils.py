@@ -29,7 +29,7 @@ from animeface_tpu_torch.implementations.StyleGAN2.model import Generator, Discr
 from animeface_tpu_torch.nnutils.ada import ada_update_p, ada_tick
 from animeface_tpu_torch.nnutils.loss import r1_regularizer
 from animeface_tpu_torch.nnutils.rng import sample_nnoise
-from animeface_tpu_torch.nnutils.training import update_ema
+from animeface_tpu_torch.nnutils.training import step_all_parameters, update_ema
 
 
 def pl_lengths(G, w, noise, pl_noise):
@@ -41,16 +41,6 @@ def pl_lengths(G, w, noise, pl_noise):
     images = G.synthesize_from_w(w.float(), noise)
     (grads,) = torch.autograd.grad((images * pl_noise).sum(), w, create_graph=True)
     return torch.sqrt((grads * grads).sum(dim=1) + 1e-12)
-
-
-def _apply(opt, module):
-    '''Optimizer step in which a parameter outside the loss's graph gets a
-    zero gradient (as optax steps every leaf), so Adam's moments and step
-    count advance for every parameter every iteration.'''
-    for p in module.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    opt.step()
 
 
 def draw_step_inputs(G, real, generator):
@@ -100,7 +90,7 @@ def build_train_step(G, D, G_ema, g_opt, d_opt, loss, r1_lambda, pl_lambda,
             real_prob = logits[:B].detach()
             d_loss = loss.d_loss(logits[:B], logits[B:])
         d_loss.backward()
-        _apply(d_opt, D)
+        step_all_parameters(d_opt, D)
 
         # ---------------- G phase ----------------
         D.requires_grad_(False)
@@ -113,7 +103,7 @@ def build_train_step(G, D, G_ema, g_opt, d_opt, loss, r1_lambda, pl_lambda,
             fake, _ = G(draws['z_g'], noise=draws['noise_g'])
             g_loss = loss.g_loss(D(augment_fn(fake, state)))
         g_loss.backward()
-        _apply(g_opt, G)
+        step_all_parameters(g_opt, G)
         D.requires_grad_(True)
         if do_pl:
             state['pl_mean'] = state['pl_mean'] * 0.99 + lengths.detach().mean() * 0.01

@@ -12,9 +12,12 @@ rot90/flip.
 
 Execution: on a CUDA tensor both passes run in the hand-written kernel pair
 (`ada_geometry_cuda.twopass_fused`) when N % 8 == 0 and We % 128 == 0, the
-TPU kernel's gate (256px: We = 384). Other square shapes went to the TPU's
-single-pass line kernel, which is not ported yet: they raise. On a CPU
-tensor the dense formulation runs (gathers and einsums).
+TPU kernel's gate (256px: We = 384). Every other square shape (128px:
+We = 192) runs each pass through the hand-written line kernel pair
+(`ada_geometry_cuda.linepass_fused`), as the TPU took its single-pass
+kernel there. On a CPU tensor the dense formulation runs (gathers and
+einsums), unless the caller asks for the kernel branch (`fused=True`),
+whose wrappers then take their plain versions.
 '''
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from animeface_tpu_torch.nnutils.ada_geometry_cuda import twopass_fused
+from animeface_tpu_torch.nnutils.ada_geometry_cuda import linepass_fused, twopass_fused
 
 
 @functools.lru_cache(maxsize=1)
@@ -157,6 +160,14 @@ def _line_pass(z, slope, shear, base, cols, out_len, half, support):
     return torch.einsum('boj,bcjw->bcow', M.to(z.dtype), z2)
 
 
+def _line_pass_fused(z, slope, shear, base, cols, out_len, half, support):
+    '''`_line_pass` through the line kernel pair, which reads z's mirror
+    extension by index instead of a materialised double canvas.'''
+    P = 2 * z.shape[2] - 2
+    tint, frac, M = _pass_params(slope, shear, base, cols, out_len, P, half, support)
+    return linepass_fused(z.contiguous(), tint, frac.to(z.dtype), M.to(z.dtype))
+
+
 def _factorize(images, G_inv, support):
     '''Normalize the map, mirror-extend the columns and split the warp into
     its two line passes. Returns (x [B, C, N, We], We, pass-1 and pass-2
@@ -209,7 +220,8 @@ def twopass_warp(images, G_inv, half=None, support=None, fused=None):
 
     images: [B, C, N, N]; G_inv: [B, 3, 3] inverse homography in the exact
     path's pixel convention (p_in = A (p_out - ctr) + ctr + u). `fused`
-    picks the kernel-pair branch; None means: on a CUDA tensor.
+    picks the kernel branch (the two-pass pair where the shape passes its
+    gate, else the line pair for each pass); None means: on a CUDA tensor.
     '''
     if half is None:
         half, support = derive_axis_kernel()
@@ -217,15 +229,12 @@ def twopass_warp(images, G_inv, half=None, support=None, fused=None):
     We = N + 2 * max(N // 4, support + 2)
     if fused is None:
         fused = images.device.type == 'cuda'
-    if fused:
-        if images.device.type == 'cuda' and (N % 8 or We % 128):
-            raise NotImplementedError(
-                f'{N}px ADA geometry on CUDA needs the single-pass line kernel '
-                '(ROADMAP Queue 2 item 2), which is not ported yet')
+    if fused and not (N % 8 or We % 128):
         out = twopass_fused(*fused_inputs(images, G_inv, half, support))
         return out.transpose(2, 3).to(images.dtype)                # [B, C, rows, x]
 
+    line = _line_pass_fused if fused else _line_pass
     x, We, pass1, pass2 = _factorize(images, G_inv, support)
-    y1 = _line_pass(x, *pass1, N, half, support)                   # [B, C, N, We]
-    out = _line_pass(y1.transpose(2, 3), *pass2, N, half, support)
+    y1 = line(x, *pass1, N, half, support)                         # [B, C, N, We]
+    out = line(y1.transpose(2, 3), *pass2, N, half, support)
     return out.transpose(2, 3).to(images.dtype)

@@ -1,9 +1,17 @@
-'''Hand-written CUDA kernels for the ADA two-pass warp (`csrc/ada_twopass.cu`).
+'''Hand-written CUDA kernels for the ADA two-pass warp.
 
-Replaces the Pallas TPU kernel pair `twopass_fused` of
-`animeface_tpu/nnutils/ada_geometry_tpu.py` (`_fwd2_kernel` forward,
-`_bwd2_kernel` backward). `twopass_fused` keeps the TPU kernel's argument
-layout, so the parameters that `_pass_params` builds feed either side:
+Two kernel pairs, each replacing a Pallas TPU pair of
+`animeface_tpu/nnutils/ada_geometry_tpu.py`:
+
+* `twopass_fused` (`csrc/ada_twopass.cu`) replaces `twopass_fused`
+  (`_fwd2_kernel` forward, `_bwd2_kernel` backward): both passes in one
+  call, for shapes that pass the gate N % 8 == 0 and We % 128 == 0 (256px);
+* `linepass_fused` (`csrc/ada_linepass.cu`) replaces `linepass_fused`
+  (`_fwd_kernel` forward, `_bwd_kernel` backward): one line pass, called
+  once per pass for every other shape (128px: We = 192).
+
+`twopass_fused` keeps the TPU kernel's argument layout, so the parameters
+that `_pass_params` builds feed either side:
 
     x:     [B, C, N, Wep]   extended canvas (live columns < We)
     t1/f1: [B, Wep]         pass-1 per-column shift (mod P1) / blend
@@ -12,15 +20,25 @@ layout, so the parameters that `_pass_params` builds feed either side:
     M2:    [B, out, P2p]    pass-2 kernel matrix (columns >= P2 ignored)
     returns [B, C, out, N]  (transposed: x-axis first)
 
-Gradients flow to `x` only: t, f and M are augmentation draws. A CPU tensor
-takes `twopass_fused_plain`, the same function in index gathers and
-einsums; a CUDA tensor launches the kernels and raises if it cannot.
+`linepass_fused` reads the undoubled map through the mirror index (the TPU
+kernel took the materialised double canvas z2):
+
+    z:     [B, C, N, W]     lines along axis 2 (period P = 2N - 2)
+    t/f:   [B, W]           per-column shift (mod P) / blend
+    M:     [B, out, Pp]     kernel matrix (columns >= P ignored)
+    returns [B, C, out, W]
+
+Gradients flow to `x`/`z` only: t, f and M are augmentation draws. A CPU
+tensor takes the plain version (`twopass_fused_plain`,
+`linepass_fused_plain`), the same function in index gathers and einsums; a
+CUDA tensor launches the kernels and raises if it cannot.
 
 Bound at the main-path shapes (B=32, 256px: N=256, We=Wep=384, f32): the
 call reads x, M1 and M2 and writes the output, 3.28 MB per image, 105 MB in
-all: 31 us at 3.35 TB/s. M is banded (13 taps a row), so the work is bound
-by bytes; the kernels skip the zeros of M (see the source's header) and
-the next step is to read only M's band.
+all: 31 us at 3.35 TB/s. At the 128px shapes one line pass reads z and M
+and writes its output, 22-23 MB: about 7 us. M is banded (13 taps a row),
+so the work is bound by bytes; the kernels skip the zeros of M (see the
+sources' headers) and the next step is to read only M's band.
 '''
 
 from __future__ import annotations
@@ -29,29 +47,39 @@ import ctypes
 
 import torch
 
-#: launches of the forward kernel / of the backward kernel chain, counted by
-#: the wrappers below (a run can show that it went through the kernels)
+#: launches of each forward kernel / backward kernel chain, counted by the
+#: wrappers below (a run can show that it went through the kernels)
 fwd_launches = 0
 bwd_launches = 0
+line_fwd_launches = 0
+line_bwd_launches = 0
 
-_SOURCE = 'ada_twopass'
-_lib = None
+_p, _i = ctypes.c_void_p, ctypes.c_int
+#: C functions of each source: the number of int dims that each of them
+#: takes, and its entry points as (name, pointer args); `<source>_smem_bytes`
+#: takes the dims alone
+_ENTRIES = {
+    'ada_twopass': (10, [('ada_twopass_fwd', 8), ('ada_twopass_bwd', 11)]),
+    'ada_linepass': (7, [('ada_linepass_fwd', 5), ('ada_linepass_bwd', 6)]),
+}
+_libs = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _library(source):
+    lib = _libs.get(source)
+    if lib is None:
         from animeface_tpu_torch._build import library
-        lib = library(_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ada_twopass_fwd.argtypes = [p] * 8 + [i] * 10 + [p]
-        lib.ada_twopass_fwd.restype = ctypes.c_int
-        lib.ada_twopass_bwd.argtypes = [p] * 11 + [i] * 10 + [p]
-        lib.ada_twopass_bwd.restype = ctypes.c_int
-        lib.ada_twopass_smem_bytes.argtypes = [i] * 10
-        lib.ada_twopass_smem_bytes.restype = ctypes.c_size_t
-        _lib = lib
-    return _lib
+        lib = library(source)
+        n_dims, entries = _ENTRIES[source]
+        for name, n_ptr in entries:
+            fn = getattr(lib, name)
+            fn.argtypes = [_p] * n_ptr + [_i] * n_dims + [_p]    # ..., stream
+            fn.restype = ctypes.c_int
+        smem = getattr(lib, f'{source}_smem_bytes')
+        smem.argtypes = [_i] * n_dims
+        smem.restype = ctypes.c_size_t
+        _libs[source] = lib
+    return lib
 
 
 def _mirror(j, n):
@@ -111,7 +139,7 @@ def _dims(x, M1, M2, P1, P2, We, out_len):
 
 def _launch_fwd(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
     global fwd_launches
-    lib = _library()
+    lib = _library('ada_twopass')
     dims = _dims(x, M1, M2, P1, P2, We, out_len)
     out = torch.empty((x.shape[0], x.shape[1], out_len, x.shape[2]),
                       dtype=torch.float32, device=x.device)
@@ -128,7 +156,7 @@ def _launch_fwd(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
 
 def _launch_bwd(g, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
     global bwd_launches
-    lib = _library()
+    lib = _library('ada_twopass')
     B, C, _, N = g.shape
     Wep = t1.shape[1]
     dims = [B, C, N, Wep, We, P1, M1.shape[2], P2, M2.shape[2], out_len]
@@ -178,3 +206,100 @@ def twopass_fused(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
     _check(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len)
     return _TwoPassFused.apply(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len)
 
+
+# ---------------------------------------------------------------------------
+# one line pass (`csrc/ada_linepass.cu`)
+# ---------------------------------------------------------------------------
+
+def linepass_fused_plain(z, t, f, M):
+    '''The line kernels' function in plain PyTorch (differentiable by
+    autograd): shift, blend and M product along axis 2 of z.'''
+    N = z.shape[2]
+    P = 2 * N - 2
+    v = _shift_blend(z, t, f, P, N)                              # [B,C,P,W]
+    return torch.einsum('bol,bclw->bcow', M[:, :, :P], v)
+
+
+def _check_line(z, t, f, M):
+    B, C, N, W = z.shape
+    for name, tensor, dtype, shape in (
+            ('z', z, torch.float32, None), ('t', t, torch.int32, (B, W)),
+            ('f', f, torch.float32, (B, W)), ('M', M, torch.float32, None)):
+        if tensor.device != z.device:
+            raise ValueError(f'{name} is on {tensor.device}, z on {z.device}')
+        if tensor.dtype != dtype:
+            raise TypeError(f'{name} must be {dtype}, got {tensor.dtype}')
+        if shape is not None and tuple(tensor.shape) != shape:
+            raise ValueError(f'{name} has shape {tuple(tensor.shape)}, '
+                             f'expected {shape}')
+        if not tensor.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+    if N < 2 or M.ndim != 3 or M.shape[0] != B or M.shape[2] < 2 * N - 2:
+        raise ValueError(f'M has shape {tuple(M.shape)}; expected [{B}, out, >= '
+                         f'{2 * N - 2}] for z {tuple(z.shape)}')
+
+
+def _line_dims(z, M):
+    B, C, N, W = z.shape
+    return [B, C, N, W, 2 * N - 2, M.shape[2], M.shape[1]]
+
+
+def _launch_line_fwd(z, t, f, M):
+    global line_fwd_launches
+    lib = _library('ada_linepass')
+    dims = _line_dims(z, M)
+    B, C, _, W = z.shape
+    out = torch.empty((B, C, M.shape[1], W), dtype=torch.float32, device=z.device)
+    err = lib.ada_linepass_fwd(z.data_ptr(), t.data_ptr(), f.data_ptr(), M.data_ptr(),
+                               out.data_ptr(), *dims,
+                               torch.cuda.current_stream(z.device).cuda_stream)
+    if err:
+        raise RuntimeError(f'ada_linepass_fwd failed: CUDA error {err} '
+                           f'(shared memory {lib.ada_linepass_smem_bytes(*dims)} B)')
+    line_fwd_launches += 1
+    return out
+
+
+def _launch_line_bwd(g, t, f, M, N):
+    global line_bwd_launches
+    lib = _library('ada_linepass')
+    B, C, out_len, W = g.shape
+    P = 2 * N - 2
+    dims = [B, C, N, W, P, M.shape[2], out_len]
+    dz = torch.empty((B, C, N, W), dtype=torch.float32, device=g.device)
+    MT = torch.empty((B, P, out_len), dtype=torch.float32, device=g.device)
+    err = lib.ada_linepass_bwd(g.data_ptr(), t.data_ptr(), f.data_ptr(), M.data_ptr(),
+                               dz.data_ptr(), MT.data_ptr(), *dims,
+                               torch.cuda.current_stream(g.device).cuda_stream)
+    if err:
+        raise RuntimeError(f'ada_linepass_bwd failed: CUDA error {err} '
+                           f'(shared memory {lib.ada_linepass_smem_bytes(*dims)} B)')
+    line_bwd_launches += 1
+    return dz
+
+
+class _LinePassFused(torch.autograd.Function):
+    '''Forward kernel; backward kernel (first order only, into z).'''
+
+    @staticmethod
+    def forward(ctx, z, t, f, M):
+        ctx.save_for_backward(t, f, M)
+        ctx.N = z.shape[2]
+        return _launch_line_fwd(z, t, f, M)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        t, f, M = ctx.saved_tensors
+        return _launch_line_bwd(g.contiguous(), t, f, M, ctx.N), None, None, None
+
+
+def linepass_fused(z, t, f, M):
+    '''One line pass; the CUDA kernels for a CUDA tensor, the plain version
+    for a CPU tensor.'''
+    if z.device.type == 'cpu':
+        return linepass_fused_plain(z, t, f, M)
+    if z.device.type != 'cuda':
+        raise ValueError(f'linepass_fused runs on cuda or cpu, not {z.device}')
+    _check_line(z, t, f, M)
+    return _LinePassFused.apply(z, t, f, M)

@@ -20,24 +20,40 @@ mods = [m.name for m in pkgutil.walk_packages(animeface_tpu_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 import chip_smoke
-print(len(mods))
+print(' '.join(mods))
 '''
+
+#: modules that must be among those the guard imported
+REQUIRED = (
+    'animeface_tpu_torch.nnutils.ada_geometry_cuda',
+    'animeface_tpu_torch.ops.bias_act',
+    'animeface_tpu_torch.ops.conv2d_resample',
+    'animeface_tpu_torch.ops.filtered_lrelu',
+    'animeface_tpu_torch.implementations.StyleGAN2.utils',
+    'animeface_tpu_torch.implementations.StyleGAN3.model',
+    'animeface_tpu_torch.implementations.StyleGAN3.utils',
+    'animeface_tpu_torch.implementations.ADA.utils',
+)
 
 
 def test_port_and_chip_smoke_import_without_jax():
     out = subprocess.run([sys.executable, '-c', GUARD], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    mods = set(out.stdout.split())
+    assert len(mods) >= 23 and not set(REQUIRED) - mods, sorted(set(REQUIRED) - mods)
 
 
 def test_cuda_request_without_card_raises(monkeypatch):
     from animeface_tpu_torch import resolve_device
+    from animeface_tpu_torch.implementations.ADA.utils import build_training, default_args
     from animeface_tpu_torch.nnutils.ada import ada_init_state
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError):
         resolve_device()
     with pytest.raises(RuntimeError):
         ada_init_state(8)
+    with pytest.raises(RuntimeError):
+        build_training(default_args())
     assert resolve_device('cpu') == torch.device('cpu')
     assert ada_init_state(8, device='cpu')['p'].device == torch.device('cpu')
