@@ -1,5 +1,5 @@
 '''JAX package parameters -> the port's `state_dict`, for StyleGAN2 and
-StyleGAN3 G and D.
+StyleGAN3 G and D, and the CIPS G.
 
 Input: a flax params tree (nested dicts of numpy arrays, as
 `jax.device_get(variables['params'])` gives). Output: a dict of float32
@@ -15,7 +15,8 @@ The equalized-lr factor gain/sqrt(fan) is applied at run time on both sides,
 so raw values carry over unchanged.
 
 StyleGAN2 below; StyleGAN3 (`convert_stylegan3_generator`,
-`convert_stylegan3_discriminator`) after it.
+`convert_stylegan3_discriminator`) and CIPS (`convert_cips_generator`;
+its D is StyleGAN3's) after it.
 
 Generator:                                 port
   map/ELRDense_i                           map.layers.i
@@ -148,4 +149,36 @@ def convert_stylegan3_discriminator(params) -> dict:
     fc, last = _indexed(params, 'Linear')
     _dense(fc, 'fc', out)
     _dense(last, 'out', out)
+    return out
+
+
+# ---------------------------------------------------------------- CIPS
+#
+# Generator (`params` and `moments` collections):     port
+#   Linear_i                                          map.layers.i
+#   moments w_avg                                     map.w_avg
+#   SynthesisInput_0/{b, constant}                    input.{b, constant}
+#   StyleLayer_i/{ModulatedFC_0, bias}                layers.i.{fc, bias}
+#   ModulatedFC_i                                     to_rgbs.i
+# A ModulatedFC's weight keeps the JAX layout [in, out]; its affine is a
+# dense layer.
+
+def _modulated_fc(p, prefix, out):
+    out[f'{prefix}.weight'] = _t(p['weight'])
+    _dense(p['affine'], f'{prefix}.affine', out)
+
+
+def convert_cips_generator(params, moments) -> dict:
+    out = {}
+    for i, p in enumerate(_indexed(params, 'Linear')):
+        _dense(p, f'map.layers.{i}', out)
+    out['map.w_avg'] = _t(moments['w_avg'])
+    inp = params['SynthesisInput_0']
+    _dense(inp['b'], 'input.b', out)
+    out['input.constant'] = _t(inp['constant'])
+    for i, layer in enumerate(_indexed(params, 'StyleLayer')):
+        _modulated_fc(layer['ModulatedFC_0'], f'layers.{i}.fc', out)
+        out[f'layers.{i}.bias'] = _t(layer['bias'])
+    for i, p in enumerate(_indexed(params, 'ModulatedFC')):
+        _modulated_fc(p, f'to_rgbs.{i}', out)
     return out

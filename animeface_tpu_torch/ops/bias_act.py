@@ -1,13 +1,17 @@
-'''bias_act — bias add, activation, gain and clamp, in plain PyTorch.
+'''bias_act — bias add, activation, gain and clamp.
 
-Counterpart of `animeface_tpu/ops/bias_act.py` (its `activation_funcs` table
-and the 'xla' path of `bias_act`). The JAX package's opt-in Pallas kernel
-(`bias_act_pallas`) is not ported here: the default configuration never
-reaches it, and its port needs a second-order backward for R1.
+Counterpart of `animeface_tpu/ops/bias_act.py`: its `activation_funcs`
+table, and `bias_act` with the ops registry's two implementations
+(`ops/registry.py`). 'torch' (the default) is the plain composition in x's
+dtype, the JAX package's 'xla' path. 'cuda' sends the calls in the kernel's
+scope (a bias on the channel axis, C % 128 == 0, numel / C a multiple of 8)
+to the hand-written kernel (`ops/cuda_kernels.py:bias_act`, f32 inside, one
+rounding; forward only), as the JAX package's 'pallas' sends them to
+`bias_act_pallas`; the others take the composition.
 
-The bias runs along axis 1: the NCHW channel axis, and the feature axis of
-a [batch, features] input (the JAX package defaults to -1, its NHWC channel
-axis).
+The bias runs along `dim`, by default axis 1: the NCHW channel axis, and the
+feature axis of a [batch, features] input (the JAX package defaults to -1,
+its NHWC channel axis; CIPS's [B, S^2, C] passes dim=-1).
 '''
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from animeface_tpu_torch.ops.registry import resolve_impl
 
 
 class Activation(NamedTuple):
@@ -40,16 +46,26 @@ activation_funcs = {
 }
 
 
-def bias_act(x, b=None, act: str = 'linear', alpha=None, gain=None, clamp=None):
-    '''x + b (along axis 1), then the activation, times `gain`, clipped to
-    [-clamp, clamp]. `alpha`, `gain` default to the activation's own.'''
+def bias_act(x, b=None, dim: int = 1, act: str = 'linear', alpha=None, gain=None,
+             clamp=None, impl: str | None = None):
+    '''x + b (along `dim`), then the activation, times `gain`, clipped to
+    [-clamp, clamp]. `alpha`, `gain` default to the activation's own;
+    `impl` to the registry's default.'''
     assert clamp is None or clamp >= 0
     spec = activation_funcs[act]
     alpha = float(alpha if alpha is not None else spec.def_alpha)
     gain = float(gain if gain is not None else spec.def_gain)
+    if resolve_impl(impl) == 'cuda':
+        from animeface_tpu_torch.ops import cuda_kernels
+        if cuda_kernels.bias_act_in_scope(x.shape, b, dim):
+            return cuda_kernels.bias_act(x, b, dim, act, alpha, gain,
+                                         -1.0 if clamp is None else float(clamp))
     if b is not None:
-        assert b.ndim == 1 and b.shape[0] == x.shape[1]
-        x = x + b.reshape([1, -1] + [1] * (x.ndim - 2)).to(x.dtype)
+        axis = dim % x.ndim
+        assert b.ndim == 1 and b.shape[0] == x.shape[axis]
+        shape = [1] * x.ndim
+        shape[axis] = -1
+        x = x + b.reshape(shape).to(x.dtype)
     x = spec.func(x, alpha=alpha)
     if gain != 1:
         x = x * gain

@@ -1,0 +1,210 @@
+'''Hand-written CUDA kernels of the ops registry's 'cuda' implementation.
+
+Counterpart of `animeface_tpu/ops/pallas_kernels.py`. Two kernels, each with
+its plain PyTorch version beside it, its scope test and a launch counter:
+
+* `bias_act` (`csrc/bias_act.cu`) replaces `bias_act_pallas`
+  (`_bias_act_kernel`): bias, activation, gain and clamp in f32, rounded
+  once to x's dtype. Scope (`bias_act_in_scope`), as in the JAX package: a
+  bias on the channel axis, C % 128 == 0, numel / C a multiple of 8.
+* `filtered_lrelu` (`csrc/filtered_lrelu.cu`) replaces the three variants
+  of `filtered_lrelu_pallas` (`_flrelu_kernel`, `_flrelu_kernel_gather`,
+  `_flrelu_kernel_shift`) with one kernel: bias, 2x up-FIR, leaky ReLU x
+  gain, clamp, 2x down-FIR, the 2x intermediate in shared memory only, f32
+  inside, one rounding. Scope (`filtered_lrelu_in_scope`), as
+  `_flrelu_config`: up = down = 2, 1-D filters, non-negative padding,
+  C % 128 == 0, out_h == H and out_h % 8 == 0 (NCHW here, NHWC in JAX).
+
+Both are forward only, as the Pallas kernels are: a CUDA tensor that
+requires grad while grad is enabled raises. A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises, and never falls back.
+The bias arrives in x's dtype, as the Pallas entry points cast it.
+'''
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from animeface_tpu_torch.ops.bias_act import activation_funcs
+from animeface_tpu_torch.ops.upfirdn2d import upfirdn2d
+
+#: launches of each kernel, counted by the wrappers below (a run can show
+#: that it went through the kernels)
+bias_act_launches = 0
+filtered_lrelu_launches = 0
+
+#: the kernel's index of each activation (`enum Act` in csrc/bias_act.cu)
+ACT_INDEX = {name: i for i, name in enumerate(
+    ('linear', 'relu', 'lrelu', 'tanh', 'sigmoid', 'elu', 'selu', 'softplus', 'swish'))}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    'bias_act': [('bias_act_fwd', [_p, _p, _p, _ll, _ll, _ll, _i, _i, _f, _f, _f, _p])],
+    'filtered_lrelu': [('filtered_lrelu_fwd', [_p] * 4 + [_i] * 11 + [_f] * 3 + [_p])],
+}
+_libs = {}
+
+
+def _library(source):
+    lib = _libs.get(source)
+    if lib is None:
+        from animeface_tpu_torch._build import library
+        lib = library(source)
+        for name, argtypes in _SIGNATURES[source]:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _libs[source] = lib
+    return lib
+
+
+def _check_cuda(name, x, *others):
+    '''What every kernel wrapper refuses on a CUDA tensor: no backward
+    exists, the kernels take f32 and bf16 contiguous tensors on x's card.'''
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, *others)):
+        raise RuntimeError(f'{name}: the CUDA kernel is forward only (as the JAX package\'s '
+                           "Pallas kernel); run it under torch.no_grad() or use impl='torch'")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f'{name}: x must be float32 or bfloat16, got {x.dtype}')
+    if not x.is_contiguous():
+        raise ValueError(f'{name}: x must be contiguous')
+    for t in others:
+        if t is not None and t.device != x.device:
+            raise ValueError(f'{name}: an argument is on {t.device}, x on {x.device}')
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ---------------------------------------------------------------- bias_act
+
+def bias_act_in_scope(x_shape, b, dim) -> bool:
+    '''The kernel's scope (`bias_act_pallas`'s): a bias along `dim` with
+    C % 128 == 0 entries, and numel / C a multiple of 8.'''
+    if b is None or b.ndim != 1:
+        return False
+    C = x_shape[dim % len(x_shape)]
+    if C % 128 != 0 or b.shape[0] != C:
+        return False
+    return (int(np.prod(x_shape)) // C) % 8 == 0
+
+
+def bias_act_plain(x, b, dim, act, alpha, gain, clamp):
+    '''The kernel's function in plain PyTorch: x + b along `dim` in f32,
+    the activation, times `gain`, clipped to [-clamp, clamp] when
+    clamp >= 0, rounded once to x's dtype.'''
+    shape = [1] * x.ndim
+    shape[dim % x.ndim] = -1
+    v = x.float() + b.to(x.dtype).float().reshape(shape)
+    v = activation_funcs[act].func(v, alpha=alpha)
+    if gain != 1:
+        v = v * gain
+    if clamp >= 0:
+        v = v.clamp(-clamp, clamp)
+    return v.to(x.dtype)
+
+
+def bias_act(x, b, dim, act, alpha, gain, clamp):
+    '''`bias_act_plain`; the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor. `clamp` < 0 means no clamp.'''
+    global bias_act_launches
+    if x.device.type == 'cpu':
+        return bias_act_plain(x, b, dim, act, alpha, gain, clamp)
+    if x.device.type != 'cuda':
+        raise ValueError(f'bias_act runs on cuda or cpu, not {x.device}')
+    _check_cuda('bias_act', x, b)
+    dim = dim % x.ndim
+    C = x.shape[dim]
+    if b is None or b.shape != (C,):
+        raise ValueError(f'bias_act: the kernel needs a bias of {C} entries along dim {dim}')
+    lib = _library('bias_act')
+    b = b.to(x.dtype).contiguous()
+    y = torch.empty_like(x)
+    err = lib.bias_act_fwd(x.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel(), C,
+                           int(np.prod(x.shape[dim + 1:])), _DTYPE_CODE[x.dtype],
+                           ACT_INDEX[act], alpha, gain, clamp, _stream(x))
+    if err:
+        raise RuntimeError(f'bias_act_fwd failed: CUDA error {err}')
+    bias_act_launches += 1
+    return y
+
+
+# ---------------------------------------------------------- filtered_lrelu
+
+def _out_size(size, pad_lo, pad_hi, Lu, Ld):
+    return (size * 2 + pad_lo + pad_hi - (Lu - 1) - (Ld - 1) + 1) // 2
+
+
+def filtered_lrelu_in_scope(x_shape, fu, fd, up, down, padding) -> bool:
+    '''The kernel's scope (`_flrelu_config`'s) for NCHW `x_shape` and
+    padding (px0, px1, py0, py1).'''
+    if up != 2 or down != 2 or fu is None or fd is None:
+        return False
+    if fu.ndim != 1 or fd.ndim != 1:
+        return False
+    px0, px1, py0, py1 = padding
+    if min(px0, px1, py0, py1) < 0:
+        return False
+    _, C, H, _ = x_shape
+    if C % 128 != 0:
+        return False
+    out_h = _out_size(H, py0, py1, fu.shape[0], fd.shape[0])
+    return out_h == H and out_h % 8 == 0
+
+
+def filtered_lrelu_plain(x, fu, fd, b, padding, gain, slope, clamp):
+    '''The kernel's function in plain PyTorch (up = down = 2, NCHW): the
+    'store' composition of ops/filtered_lrelu.py in f32, rounded once to
+    x's dtype. `clamp` is None or >= 0.'''
+    v = x.float()
+    if b is not None:
+        v = v + b.to(x.dtype).float().reshape(1, -1, 1, 1)
+    v = upfirdn2d(v, fu, up=2, padding=padding, gain=4)
+    v = torch.nn.functional.leaky_relu(v, slope)
+    if gain != 1:
+        v = v * gain
+    if clamp is not None:
+        v = v.clamp(-clamp, clamp)
+    return upfirdn2d(v, fd, down=2).to(x.dtype)
+
+
+def filtered_lrelu(x, fu, fd, b, padding, gain, slope, clamp):
+    '''`filtered_lrelu_plain`; the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor.'''
+    global filtered_lrelu_launches
+    if x.device.type == 'cpu':
+        return filtered_lrelu_plain(x, fu, fd, b, padding, gain, slope, clamp)
+    if x.device.type != 'cuda':
+        raise ValueError(f'filtered_lrelu runs on cuda or cpu, not {x.device}')
+    _check_cuda('filtered_lrelu', x, b)
+    px0, px1, py0, py1 = padding
+    if x.ndim != 4 or fu.ndim != 1 or fd.ndim != 1 or min(padding) < 0:
+        raise ValueError('filtered_lrelu: the kernel takes NCHW x, 1-D filters and '
+                         f'non-negative padding, got {tuple(x.shape)}, {tuple(fu.shape)}, '
+                         f'{tuple(fd.shape)}, {padding}')
+    N, C, H, W = x.shape
+    Lu, Ld = fu.shape[0], fd.shape[0]
+    OH, OW = _out_size(H, py0, py1, Lu, Ld), _out_size(W, px0, px1, Lu, Ld)
+    if b is not None:
+        if b.shape != (C,):
+            raise ValueError(f'filtered_lrelu: bias of shape {tuple(b.shape)} for {C} channels')
+        b = b.to(x.dtype).contiguous()
+    lib = _library('filtered_lrelu')
+    # convolution orientation (flip), the up gain 4 as 2 per axis
+    taps = torch.cat([fu.float().flip(0) * 2, fd.float().flip(0)]).to(x.device).contiguous()
+    out = torch.empty((N, C, OH, OW), dtype=x.dtype, device=x.device)
+    err = lib.filtered_lrelu_fwd(
+        x.data_ptr(), None if b is None else b.data_ptr(), taps.data_ptr(), out.data_ptr(),
+        N, C, H, W, OH, OW, Lu, Ld, px0, py0, _DTYPE_CODE[x.dtype], gain, slope,
+        -1.0 if clamp is None else clamp, _stream(x))
+    if err:
+        raise RuntimeError(f'filtered_lrelu_fwd failed: CUDA error {err} ({Lu} up and {Ld} '
+                           'down taps)')
+    filtered_lrelu_launches += 1
+    return out

@@ -20,10 +20,14 @@ Three memory modes, one function:
   * 'remat': 'store' under `torch.utils.checkpoint`, so the backward
     recomputes the intermediate from the input.
 
-The JAX package's Pallas kernels for this op (`filtered_lrelu_pallas`) are
-scoped to same-resolution layers with C % 128 == 0, up = down = 2 and 1-D
-filters; no StyleGAN3 layer is in that scope, and the training path runs
-'pack', which never dispatches to them. They are not ported here.
+The ops registry (`ops/registry.py`) applies to 'store' only, as in the
+JAX package: with impl 'cuda', a call in the kernel's scope (up = down = 2,
+1-D filters, non-negative padding, C % 128 == 0, out_h == H and
+out_h % 8 == 0) runs the hand-written fused kernel
+(`ops/cuda_kernels.py:filtered_lrelu`, forward only), the counterpart of
+`filtered_lrelu_pallas`. 'pack' and 'remat' ignore `impl`; StyleGAN3 runs
+'pack', so no StyleGAN3 layer reaches the kernel (none is in its scope
+either: the conv grows each map by 2).
 '''
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from animeface_tpu_torch.ops import cuda_kernels
 from animeface_tpu_torch.ops.bias_act import bias_act
+from animeface_tpu_torch.ops.registry import resolve_impl
 from animeface_tpu_torch.ops.upfirdn2d import upfirdn2d, _parse_padding, _get_filter_size
 
 _ONES = torch.ones((1,), dtype=torch.float32)
@@ -97,7 +103,7 @@ class _PackedFilteredLRelu(torch.autograd.Function):
 
 def filtered_lrelu(x, fu=None, fd=None, b=None, up: int = 1, down: int = 1, padding=0,
                    gain: float = float(np.sqrt(2)), slope: float = 0.2, clamp=None,
-                   memory: str = 'store'):
+                   memory: str = 'store', impl: str | None = None):
     '''See the module docstring; x is NCHW, b has one entry per channel.'''
     assert x.ndim == 4, 'expected NCHW'
     fu_w, fu_h = _get_filter_size(fu)
@@ -127,8 +133,12 @@ def filtered_lrelu(x, fu=None, fd=None, b=None, up: int = 1, down: int = 1, padd
     elif memory == 'remat':
         out = checkpoint(
             lambda x_, b_: filtered_lrelu(x_, fu, fd, b_, up, down, padding, gain, slope,
-                                          clamp, memory='store'),
+                                          clamp, memory='store', impl='torch'),
             x, b, use_reentrant=False)
+    elif resolve_impl(impl) == 'cuda' and cuda_kernels.filtered_lrelu_in_scope(
+            x.shape, fu, fd, up, down, padding):
+        out = cuda_kernels.filtered_lrelu(x, fu, fd, b, padding, float(gain), float(slope),
+                                          None if clamp is None else float(clamp))
     else:
         out = bias_act(x, b)
         out = upfirdn2d(out, fu, up=up, padding=padding, gain=up ** 2)

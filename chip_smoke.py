@@ -23,7 +23,24 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      line kernels' launch counts set to 0 just before and read just after;
      check finite losses, 96 forward and 32 backward launches, a finite
      G_ema sample; profile one step of each variant;
-  6. print one JSON line of the kernels, the card line, and last
+     both paths run the ops registry's default 'torch' and must launch
+     neither of the registry's kernels;
+  6. hold the ops registry's kernels against their plain versions (f32
+     within TOL, bf16 within BF16_RTOL of the output's scale): bias_act at
+     CIPS's shapes ([16, 16384, 512] bf16, [16, 512] and [16, 1024] f32) and
+     all nine activations with and without the clamp; filtered_lrelu at the
+     StyleGAN3-256 same-resolution layer shapes (B = 16, bf16, 12-tap Hann
+     filters, padding 11, clamp 256) and one f32 shape; time each against
+     its plain version and bound; check that both refuse a tensor that
+     requires grad;
+  7. drive the op-level filtered_lrelu (impl='cuda', memory='store') once at
+     each of the four shapes: 4 kernel launches;
+  8. drive CIPS sampling at the recipe's 128px defaults, nothing cut
+     (G_ema forward on 16 fixed latents, bf16, impl='cuda'): 41 bias_act
+     launches a forward, finite images, ms a forward, images/s, peak
+     memory, one profiled forward; G_ema in f32 on the card against the
+     CPU on 2 latents within 1e-3 of the output's scale;
+  9. print one JSON line of the kernels, the card line, and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 '''
@@ -44,9 +61,23 @@ IMAGE = 256                    # StyleGAN2-ADA (two-pass warp kernels)
 ADA_IMAGE = 128                # the ADA recipe's default (line-pass kernels)
 ADA_STEPS = 16                 # one R1 cycle: gp_every = 16
 TOL = 1e-4                     # kernel vs plain, abs, f32 unit-scale images
+BF16_RTOL = 1.6e-2             # kernel vs plain in bf16, of the output's scale
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 D_K, G_K = 16, 8
+#: StyleGAN3-256 same-resolution layer shapes, (size, channels), batch 16
+#: (the JAX package's kernel bench, scripts/flrelu_shift_bench.py)
+FLRELU_LAYERS = ((272, 128), (144, 128), (88, 256), (64, 512))
+FLRELU_BATCH, FLRELU_PAD, FLRELU_CLAMP = 16, 11, 256.0
+CIPS_FORWARDS = 8              # timed sampling forwards
+#: bias_act's calls in one CIPS sampling forward at the recipe's defaults:
+#: (shape, dtype, activation, gain, calls) for the 15 StyleLayers, the 4
+#: mapping layers, the first StyleLayer's affine, and the other 14 + 7 affines
+CIPS_BIAS_ACT_CALLS = (((16, 16384, 512), torch.bfloat16, 'lrelu', float(np.sqrt(2)), 15),
+                       ((16, 512), torch.float32, 'lrelu', float(np.sqrt(2)), 4),
+                       ((16, 1024), torch.float32, 'linear', 1.0, 1),
+                       ((16, 512), torch.float32, 'linear', 1.0, 21))
+CIPS_BIAS_ACT_PER_FORWARD = sum(c[-1] for c in CIPS_BIAS_ACT_CALLS)      # 41
 
 
 def _card_line() -> str:
@@ -194,6 +225,7 @@ def run_main_path(dev, card):
     from animeface_tpu_torch.nnutils.ada import make_ada_pipe, ada_init_state
     from animeface_tpu_torch.nnutils.loss import NonSaturatingLoss
     from animeface_tpu_torch.nnutils.rng import make_generator
+    from animeface_tpu_torch.ops import cuda_kernels as ck
 
     args = SimpleNamespace(
         image_size=IMAGE, image_channels=3, style_dim=512, channels=32, max_channels=512,
@@ -229,6 +261,7 @@ def run_main_path(dev, card):
 
     agc.fwd_launches = agc.bwd_launches = 0
     agc.line_fwd_launches = agc.line_bwd_launches = 0
+    ck.bias_act_launches = ck.filtered_lrelu_launches = 0
     losses = []
     t0 = time.perf_counter()
     for i in range(1, D_K + 1):
@@ -239,6 +272,7 @@ def run_main_path(dev, card):
     launches = (agc.fwd_launches, agc.bwd_launches)
     if (agc.line_fwd_launches, agc.line_bwd_launches) != (0, 0):
         raise AssertionError('the 256px path launched the line kernels')
+    _check_registry_idle('the 256px path')
 
     losses = [(float(g), float(d)) for g, d in losses]
     if not all(np.isfinite(v) for pair in losses for v in pair):
@@ -268,16 +302,17 @@ def run_main_path(dev, card):
     return launches
 
 
-def profile_step(name, step, state, real):
-    '''Device time by kernel over one step (torch.profiler), and the
-    device's busy share of that step's wall time under the profiler.'''
+def profile_step(name, step, *args):
+    '''Device time by kernel over one call step(*args) (torch.profiler),
+    and the device's busy share of its wall time under the profiler.
+    Returns the rows (ms, count, kernel name), largest first.'''
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, real)
+        step(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
@@ -286,12 +321,13 @@ def profile_step(name, step, state, real):
                   reverse=True)
     if not rows:
         print('profile: the profiler recorded no device time (busy share not measured)')
-        return
+        return rows
     busy_ms = sum(r[0] for r in rows)
     print(f'profile, one {name} step: wall {wall_ms:.1f} ms, device busy '
           f'{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(rows)} kernels')
     for ms, count, key in rows[:10]:
         print(f'  {ms:9.3f} ms  x{count:5d}  {key[:100]}')
+    return rows
 
 
 def check_warp_against_dense(images, G_inv):
@@ -349,6 +385,7 @@ def run_ada_path(dev, card, **overrides):
     then one 16-step cycle with the kernels' counts read around it.'''
     from animeface_tpu_torch.implementations.ADA.utils import build_training, default_args
     from animeface_tpu_torch.nnutils import ada_geometry_cuda as agc
+    from animeface_tpu_torch.ops import cuda_kernels as ck
 
     args = default_args(**overrides)
     print('ADA args:', json.dumps(vars(args)))
@@ -366,6 +403,7 @@ def run_ada_path(dev, card, **overrides):
     torch.cuda.reset_peak_memory_stats()
     agc.line_fwd_launches = agc.line_bwd_launches = 0
     agc.fwd_launches = agc.bwd_launches = 0
+    ck.bias_act_launches = ck.filtered_lrelu_launches = 0
     first = state['step']
     variants = [run.uses_r1(i) for i in range(first, first + ADA_STEPS)]
     losses = []
@@ -377,6 +415,7 @@ def run_ada_path(dev, card, **overrides):
     dt = time.perf_counter() - t0
     launches = (agc.line_fwd_launches, agc.line_bwd_launches)
     twopass = (agc.fwd_launches, agc.bwd_launches)
+    _check_registry_idle('the ADA path')
 
     losses = [(float(g), float(d)) for g, d in losses]
     if not all(np.isfinite(v) for pair in losses for v in pair):
@@ -440,6 +479,281 @@ def check_models_against_cpu(run, args, dev, batch=2, rtol=1e-3):
     print(f'card vs CPU check: {time.perf_counter() - t0:.2f} s')
 
 
+# ------------------------------------------------- the ops registry's kernels
+
+def _check_registry_idle(path):
+    '''A path run with the default 'torch' implementation launched
+    neither of the ops registry's kernels.'''
+    from animeface_tpu_torch.ops import cuda_kernels as ck
+    counts = (ck.bias_act_launches, ck.filtered_lrelu_launches)
+    if counts != (0, 0):
+        raise AssertionError(f'{path} launched the registry kernels (bias_act, '
+                             f'filtered_lrelu): {counts}')
+
+
+def _hold_fwd(label, kernel, plain, args):
+    '''A forward-only kernel against its plain version on the same
+    inputs: f32 within TOL abs, bf16 within BF16_RTOL of the output's
+    scale. Returns the error and the mean device times of both.'''
+    ref = plain(*args)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    tol = TOL if ref.dtype == torch.float32 else BF16_RTOL * max(1.0, scale)
+    if not (got.shape == ref.shape and got.dtype == ref.dtype and err <= tol):
+        raise AssertionError(f'{label}: the kernel disagrees with the plain version: {err} '
+                             f'(tol {tol}), shapes {tuple(got.shape)}/{tuple(ref.shape)}')
+    ms, plain_ms = _time_ms(lambda: kernel(*args)), _time_ms(lambda: plain(*args))
+    print(f'{label}: max_abs_err {err:.3e} (tol {tol:.3e}, scale {scale:.3e})  kernel '
+          f'{ms:.4f} ms  plain {plain_ms:.4f} ms')
+    return err, ms, plain_ms
+
+
+def _bias_act_work(x, act):
+    '''Bytes (x once in, y once out, the bias along the last axis) and f32
+    operations (bias add, lrelu's compare and multiply, gain) of one call.'''
+    assert act in ('linear', 'lrelu')
+    ops = (1 if act == 'linear' else 4) * x.numel()
+    return (2 * x.numel() + x.shape[-1]) * x.element_size(), ops
+
+
+def check_bias_act_kernel(dev):
+    '''bias_act against its plain version at the CIPS forward's shapes, and
+    every activation with and without the clamp at a small shape. Returns
+    the kernels-line entry without launches; ms, plain_ms and bound_ms sum
+    one forward's 41 calls.'''
+    from animeface_tpu_torch.ops import cuda_kernels as ck
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    err = ms = plain_ms = bound_ms = 0.0
+    for shape, dtype, act, gain, calls in CIPS_BIAS_ACT_CALLS:
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        b = torch.randn(shape[-1], generator=g, device=dev).to(dtype)
+        e, t, tp = _hold_fwd(f'bias_act {act} {tuple(shape)} {str(dtype)[6:]}', ck.bias_act,
+                             ck.bias_act_plain, (x, b, -1, act, 0.2, gain, -1.0))
+        bound, _ = _bound(*_bias_act_work(x, act))
+        print(f'  x{calls} a forward; bound {bound:.4f} ms')
+        err, ms, plain_ms = max(err, e), ms + calls * t, plain_ms + calls * tp
+        bound_ms += calls * bound
+    x = torch.randn((64, 256), generator=g, device=dev) * 3
+    b = torch.randn(256, generator=g, device=dev)
+    for act in sorted(ck.ACT_INDEX):
+        for clamp in (-1.0, 0.5):
+            ref = ck.bias_act_plain(x, b, -1, act, 0.3, 1.7, clamp)
+            got = ck.bias_act(x, b, -1, act, 0.3, 1.7, clamp)
+            e = float((got - ref).abs().max())
+            if not e <= TOL:
+                raise AssertionError(f'bias_act {act} clamp {clamp}: {e}')
+            err = max(err, e)
+    print(f'bias_act: 9 activations x clamp on/off at (64, 256) f32 agree within {TOL}')
+    print(f'bias_act, one CIPS forward (41 calls): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+          f'bound {bound_ms:.4f} ms (bytes)')
+    return dict(name='bias_act', route='cuda', source='animeface_tpu_torch/csrc/bias_act.cu',
+                replaces='animeface_tpu/ops/pallas_kernels.py:815', launches=None,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by='bytes', library_ms=None)
+
+
+def _flrelu_work(x, Lu, Ld, pad):
+    '''Bytes (x, bias and the same-size output once) and f32 operations of
+    one same-resolution call: the separable polyphase stages at the
+    composition's sizes (up along H and W, Lu / 2 taps a sample; down
+    along W and H, Ld taps), 2 a multiply-add, and 3 for the activation,
+    gain and clamp of each 2x sample.'''
+    N, C, H, W = x.shape
+    OH, OW = H, W
+    Ly = 2 * H + 2 * pad - Lu + 1
+    Lx = 2 * W + 2 * pad - Lu + 1
+    half = (Lu + 1) // 2
+    macs = Ly * W * half + Ly * Lx * half + Ly * OW * Ld + OH * OW * Ld
+    ops = N * C * (2 * macs + 3 * Ly * Lx)
+    moved = (2 * x.numel() + C) * x.element_size()
+    return moved, ops
+
+
+def _flrelu_inputs(dev):
+    '''(label, x, b) at the four StyleGAN3-256 shapes in bf16, and one f32
+    shape.'''
+    g = torch.Generator(device=dev).manual_seed(5)
+    cases = [(FLRELU_BATCH, c, s, torch.bfloat16) for s, c in FLRELU_LAYERS]
+    cases.append((4, 256, 64, torch.float32))
+    out = []
+    for n, c, s, dtype in cases:
+        x = (torch.randn((n, c, s, s), generator=g, device=dev) * 2).to(dtype)
+        b = (torch.randn(c, generator=g, device=dev) * 0.3).to(dtype)
+        out.append((f'filtered_lrelu {(n, c, s, s)} {str(dtype)[6:]}', x, b))
+    return out
+
+
+def check_filtered_lrelu_kernel(dev, fu):
+    '''filtered_lrelu against its plain version at the four path shapes and
+    one f32 shape. Returns the kernels-line entry without launches; ms,
+    plain_ms and bound_ms sum the four path shapes (one call each).'''
+    from animeface_tpu_torch.ops import cuda_kernels as ck
+
+    pad = (FLRELU_PAD,) * 4
+    err = ms = plain_ms = bound_ms = 0.0
+    bound_by = set()
+    for k, (label, x, b) in enumerate(_flrelu_inputs(dev)):
+        args = (x, fu, fu, b, pad, float(np.sqrt(2)), 0.2, FLRELU_CLAMP)
+        e, t, tp = _hold_fwd(label, ck.filtered_lrelu, ck.filtered_lrelu_plain, args)
+        err = max(err, e)
+        bound, by = _bound(*_flrelu_work(x, fu.numel(), fu.numel(), FLRELU_PAD))
+        print(f'  bound {bound:.4f} ms ({by})')
+        if k < len(FLRELU_LAYERS):
+            ms, plain_ms, bound_ms = ms + t, plain_ms + tp, bound_ms + bound
+            bound_by.add(by)
+        torch.cuda.empty_cache()
+    print(f'filtered_lrelu, the four path shapes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+          f'bound {bound_ms:.4f} ms')
+    return dict(name='filtered_lrelu', route='cuda',
+                source='animeface_tpu_torch/csrc/filtered_lrelu.cu',
+                replaces='animeface_tpu/ops/pallas_kernels.py:565', launches=None,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by='operations' if 'operations' in bound_by else 'bytes',
+                library_ms=None)
+
+
+def check_grad_refused(dev, fu):
+    '''impl='cuda' on a CUDA tensor that requires grad raises (no
+    backward exists), for both of the registry's kernels.'''
+    from animeface_tpu_torch import ops
+
+    x = torch.randn((16, 128, 16, 16), device=dev, requires_grad=True)
+    b = torch.zeros(128, device=dev)
+    for name, call in (
+            ('bias_act', lambda: ops.bias_act(x, b, act='lrelu', impl='cuda')),
+            ('filtered_lrelu', lambda: ops.filtered_lrelu(x, fu, fu, b, up=2, down=2,
+                                                          padding=FLRELU_PAD, impl='cuda'))):
+        try:
+            call()
+        except RuntimeError as exc:
+            if 'forward only' not in str(exc):
+                raise
+        else:
+            raise AssertionError(f'{name}: a tensor that requires grad did not raise')
+    print('bias_act and filtered_lrelu refuse a CUDA tensor that requires grad')
+
+
+def run_flrelu_path(dev, fu):
+    '''The op-level filtered_lrelu (impl='cuda', memory='store') once at
+    each StyleGAN3-256 shape, the counts set to 0 just before and read just
+    after: one launch a call, output against the plain version.'''
+    from animeface_tpu_torch import ops
+    from animeface_tpu_torch.ops import cuda_kernels as ck
+
+    inputs = _flrelu_inputs(dev)[:len(FLRELU_LAYERS)]
+    kw = dict(up=2, down=2, padding=FLRELU_PAD, gain=float(np.sqrt(2)), slope=0.2,
+              clamp=FLRELU_CLAMP)
+    ck.bias_act_launches = ck.filtered_lrelu_launches = 0
+    outs, counts = [], []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _, x, b in inputs:
+            outs.append(ops.filtered_lrelu(x, fu, fu, b, impl='cuda', **kw))
+            counts.append(ck.filtered_lrelu_launches)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ck.filtered_lrelu_launches
+    if counts != list(range(1, len(inputs) + 1)) or ck.bias_act_launches:
+        raise AssertionError(f'op-level filtered_lrelu: kernel launches after each call '
+                             f'{counts}, bias_act {ck.bias_act_launches}; want one a call')
+    for (label, x, b), out in zip(inputs, outs):
+        ref = ck.filtered_lrelu_plain(x, fu, fu, b, (FLRELU_PAD,) * 4, kw['gain'], 0.2,
+                                      FLRELU_CLAMP)
+        err = float((out.float() - ref.float()).abs().max())
+        if not (out.shape == x.shape and bool(torch.isfinite(out).all())
+                and err <= BF16_RTOL * max(1.0, float(ref.float().abs().max()))):
+            raise AssertionError(f'op-level {label}: wrong output (err {err})')
+    print(f'op-level filtered_lrelu path: {launches} launches for {len(inputs)} calls, '
+          f'{dt * 1e3:.2f} ms wall')
+    return launches
+
+
+def run_cips_path(dev, card, **overrides):
+    '''CIPS sampling at the recipe's 128px defaults (`overrides` change
+    them): the sampler (G_ema on num_test fixed latents, impl='cuda'),
+    warm-up, then CIPS_FORWARDS forwards with the counts read around them.'''
+    from animeface_tpu_torch.implementations.CIPS.utils import (
+        build_models, default_args, make_sampler)
+    from animeface_tpu_torch.nnutils import ada_geometry_cuda as agc
+    from animeface_tpu_torch.ops import cuda_kernels as ck
+
+    args = default_args(**overrides)
+    print('CIPS args:', json.dumps(vars(args)))
+    _, _, G_ema = build_models(args, device=dev, seed=0)
+    sample = make_sampler(G_ema, args, seed=0, impl='cuda')
+    t0 = time.perf_counter()
+    for _ in range(2):
+        sample()
+    torch.cuda.synchronize()
+    print(f'CIPS warm-up (2 forwards): {time.perf_counter() - t0:.2f} s')
+
+    torch.cuda.reset_peak_memory_stats()
+    ck.bias_act_launches = ck.filtered_lrelu_launches = 0
+    agc.fwd_launches = agc.bwd_launches = agc.line_fwd_launches = agc.line_bwd_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(CIPS_FORWARDS):
+        images = sample()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ck.bias_act_launches
+    others = (ck.filtered_lrelu_launches, agc.fwd_launches, agc.bwd_launches,
+              agc.line_fwd_launches, agc.line_bwd_launches)
+    want = CIPS_BIAS_ACT_PER_FORWARD * CIPS_FORWARDS
+    if launches != want or any(others):
+        raise AssertionError(f'CIPS: bias_act launches {launches} (want {want}), other kernels '
+                             f'{others} (want 0)')
+    size = args.image_size
+    if images.shape != (args.num_test, args.image_channels, size, size) \
+            or not bool(torch.isfinite(images).all()):
+        raise AssertionError('CIPS samples are not finite or have the wrong shape')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'CIPS path: {CIPS_FORWARDS} forwards of {args.num_test} latents, {size}px, full '
+          f'width, bf16: {dt / CIPS_FORWARDS * 1e3:.3f} ms a forward, '
+          f'{args.num_test * CIPS_FORWARDS / dt:.2f} images/s on {card}; bias_act launches '
+          f'{launches} ({launches // CIPS_FORWARDS} a forward)')
+    print(f'CIPS peak device memory {peak:.2f} GiB')
+    rows = profile_step('CIPS sampling forward', sample)
+    if rows:
+        busy = sum(r[0] for r in rows)
+        kern = sum(r[0] for r in rows if 'bias_act_kernel' in r[2])
+        print(f'CIPS profile: bias_act kernel {kern:.3f} ms of {busy:.3f} ms device busy '
+              f'({100 * kern / busy:.1f}%)')
+    check_cips_against_cpu(G_ema, args, dev)
+    return launches
+
+
+def check_cips_against_cpu(G_ema, args, dev, batch=2, rtol=1e-3):
+    '''The sampled G_ema at full width, in f32 under impl='cuda' on the card
+    (the kernels, TF32 off) and on the CPU (their plain versions), on the
+    same latents: images agree to `rtol` of their scale.'''
+    from animeface_tpu_torch.implementations.CIPS.utils import build_models
+    from animeface_tpu_torch.ops import registry
+
+    f32 = SimpleNamespace(**dict(vars(args), no_bf16=True))
+    z = torch.randn((batch, args.latent_dim), generator=torch.Generator().manual_seed(3))
+    outs = []
+    t0 = time.perf_counter()
+    registry.set_default_impl('cuda')
+    try:
+        for device in (dev, torch.device('cpu')):
+            _, _, G = build_models(f32, device=device)
+            G.load_state_dict(G_ema.state_dict())
+            with torch.no_grad():
+                outs.append(G(z.to(device)).cpu())
+            del G
+    finally:
+        registry.set_default_impl('torch')
+    scale = max(float(outs[1].abs().max()), 1e-6)
+    err = float((outs[0] - outs[1]).abs().max())
+    print(f'CIPS G_ema f32, card vs CPU, {batch} samples: max_abs_err {err:.3e} '
+          f'(scale {scale:.3e}, tol {rtol} x scale); {time.perf_counter() - t0:.2f} s')
+    if not (bool(torch.isfinite(outs[0]).all()) and err <= rtol * scale):
+        raise AssertionError(f'CIPS images on the card disagree with the CPU: {err} vs {scale}')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this run needs one GPU', file=sys.stderr)
@@ -473,6 +787,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     line_kernels[0]['launches'], line_kernels[1]['launches'] = run_ada_path(dev, card)
     kernels += line_kernels
+    torch.cuda.empty_cache()
+
+    from animeface_tpu_torch.ops import setup_filter
+    fu = setup_filter(np.hanning(12), device=dev)
+    bias_act_entry = check_bias_act_kernel(dev)
+    flrelu_entry = check_filtered_lrelu_kernel(dev, fu)
+    check_grad_refused(dev, fu)
+    flrelu_entry['launches'] = run_flrelu_path(dev, fu)
+    torch.cuda.empty_cache()
+    bias_act_entry['launches'] = run_cips_path(dev, card)
+    kernels += [bias_act_entry, flrelu_entry]
 
     print(json.dumps({'kernels': kernels}))
     print(card)

@@ -5,16 +5,21 @@ machine without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Without a card they skip. The kernels sum the same nonzero taps as the
+Without a card they skip. The warp kernels sum the same nonzero taps as the
 plain version's f32 einsum, in another order, so the tolerance is 1e-4 abs
-on unit-scale inputs.
+on unit-scale inputs. The ops registry's kernels (bias_act,
+filtered_lrelu) compute in f32 and round once, as their plain versions do:
+1e-4 abs in f32, and 1.6e-2 of the output's scale in bf16 (the ops'
+documented bf16 tolerance; one rounding step either way).
 '''
 
 import numpy as np
 import pytest
 import torch
 
+from animeface_tpu_torch import ops
 from animeface_tpu_torch.nnutils import ada_geometry_cuda as agc
+from animeface_tpu_torch.ops import cuda_kernels as ck
 
 pytestmark = pytest.mark.cuda
 
@@ -174,3 +179,98 @@ def test_warp_at_128px_takes_the_line_kernels(cuda):
     assert (agc.fwd_launches, agc.line_fwd_launches) == (before[0], before[1] + 2)
     want = twopass_warp(images, captured['G'], fused=False)
     assert float((got - want).abs().max()) < 1e-4
+
+
+# ------------------------------------------------- the ops registry's kernels
+
+def _err_ok(got, want):
+    err = float((got.float() - want.float()).abs().max())
+    if want.dtype == torch.float32:
+        return err <= 1e-4
+    return err <= 1.6e-2 * max(1.0, float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize('shape,dim,dtype', [
+    ((8, 256, 512), -1, torch.bfloat16),    # CIPS StyleLayer layout [B, S^2, C]
+    ((16, 512), 1, torch.float32),          # mapping / affines
+    ((16, 1024), 1, torch.float32),
+    ((4, 128, 5, 5), 1, torch.float32),     # NCHW, inner = 25: one element a thread
+    ((4, 128, 4, 4), 1, torch.bfloat16),    # NCHW, inner = 16: one channel a vector
+])
+def test_bias_act_kernel_matches_plain(cuda, shape, dim, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(len(shape))
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    b = torch.randn(shape[dim], generator=gen, device=cuda)
+    for act in sorted(ck.ACT_INDEX):
+        for clamp in (-1.0, 0.5):
+            want = ck.bias_act_plain(x, b, dim, act, 0.2, 1.3, clamp)
+            before = ck.bias_act_launches
+            got = ck.bias_act(x, b, dim, act, 0.2, 1.3, clamp)
+            torch.cuda.synchronize()
+            assert ck.bias_act_launches == before + 1
+            assert got.dtype == dtype and got.shape == x.shape
+            assert _err_ok(got, want), (act, clamp)
+
+
+HANN = ops.setup_filter(np.hanning(12))
+
+
+@pytest.mark.parametrize('shape,taps,padding,dtype,clamp,bias', [
+    ((2, 128, 16, 16), (12, 12), (11, 11, 11, 11), torch.float32, 256.0, True),
+    ((2, 128, 64, 64), (12, 12), (11, 11, 11, 11), torch.bfloat16, 256.0, True),
+    ((1, 128, 40, 40), (12, 12), (11, 11, 11, 11), torch.float32, None, False),
+    ((1, 128, 16, 24), (12, 8), (9, 8, 10, 8), torch.float32, 0.8, True),   # asymmetric
+    ((1, 128, 24, 24), (24, 24), (23, 22, 23, 22), torch.float32, None, True),  # > 48 KB smem
+])
+def test_filtered_lrelu_kernel_matches_plain(cuda, shape, taps, padding, dtype, clamp, bias):
+    gen = torch.Generator(device=cuda).manual_seed(shape[2])
+    if taps == (12, 12):
+        fu = fd = HANN.to(cuda)
+    else:
+        rng = np.random.default_rng(taps[0])
+        fu, fd = (torch.from_numpy((f / f.sum()).astype(np.float32)).to(cuda)
+                  for f in (rng.uniform(0.1, 1, taps[0]), rng.uniform(0.1, 1, taps[1])))
+    x = (torch.randn(shape, generator=gen, device=cuda) * 2).to(dtype)
+    b = torch.randn(shape[1], generator=gen, device=cuda) * 0.3 if bias else None
+    want = ck.filtered_lrelu_plain(x, fu, fd, b, padding, 1.4142135, 0.2, clamp)
+    before = ck.filtered_lrelu_launches
+    got = ck.filtered_lrelu(x, fu, fd, b, padding, 1.4142135, 0.2, clamp)
+    torch.cuda.synchronize()
+    assert ck.filtered_lrelu_launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _err_ok(got, want)
+
+
+def test_ops_dispatch_by_scope_on_cuda(cuda):
+    '''impl='cuda': in-scope calls launch the kernels, out-of-scope calls
+    take the composition; the default 'torch' launches nothing.'''
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((4, 128, 16, 16), generator=gen, device=cuda)
+    b = torch.randn(128, generator=gen, device=cuda)
+    f = HANN.to(cuda)
+    counts = (ck.bias_act_launches, ck.filtered_lrelu_launches)
+    ops.filtered_lrelu(x, f, f, b, up=2, down=2, padding=11, impl='cuda')
+    ops.bias_act(x, b, act='lrelu', impl='cuda')
+    assert (ck.bias_act_launches, ck.filtered_lrelu_launches) == (counts[0] + 1, counts[1] + 1)
+    ops.filtered_lrelu(x[:, :64], f, f, b[:64], up=2, down=2, padding=11, impl='cuda')
+    ops.bias_act(x[:, :64], b[:64], act='lrelu', impl='cuda')
+    ops.filtered_lrelu(x, f, f, b, up=2, down=2, padding=11)
+    ops.bias_act(x, b, act='lrelu')
+    torch.cuda.synchronize()
+    assert (ck.bias_act_launches, ck.filtered_lrelu_launches) == (counts[0] + 1, counts[1] + 1)
+
+
+def test_kernels_refuse_grad(cuda):
+    '''No backward exists: a CUDA tensor that requires grad raises while
+    grad is enabled, and runs under torch.no_grad().'''
+    x = torch.randn((8, 128, 16, 16), device=cuda, requires_grad=True)
+    b = torch.zeros(128, device=cuda)
+    f = HANN.to(cuda)
+    with pytest.raises(RuntimeError, match='forward only'):
+        ops.bias_act(x, b, act='lrelu', impl='cuda')
+    with pytest.raises(RuntimeError, match='forward only'):
+        ops.filtered_lrelu(x, f, f, b, up=2, down=2, padding=11, impl='cuda')
+    with torch.no_grad():
+        ops.bias_act(x, b, act='lrelu', impl='cuda')
+        ops.filtered_lrelu(x, f, f, b, up=2, down=2, padding=11, impl='cuda')
+    torch.cuda.synchronize()

@@ -29,6 +29,10 @@ REQUIRED = (
     'animeface_tpu_torch.ops.bias_act',
     'animeface_tpu_torch.ops.conv2d_resample',
     'animeface_tpu_torch.ops.filtered_lrelu',
+    'animeface_tpu_torch.ops.registry',
+    'animeface_tpu_torch.ops.cuda_kernels',
+    'animeface_tpu_torch.implementations.CIPS.model',
+    'animeface_tpu_torch.implementations.CIPS.utils',
     'animeface_tpu_torch.implementations.StyleGAN2.utils',
     'animeface_tpu_torch.implementations.StyleGAN3.model',
     'animeface_tpu_torch.implementations.StyleGAN3.utils',
