@@ -37,14 +37,26 @@
 // the next step.
 //
 // Backward (the exact transpose; the gradient goes to x only) runs in
-// gather form, without atomics:
-//   transpose M1 -> M1T [B,P1,N] and M2 -> M2T [B,P2,out] so that columns
-//   of M become rows that a warp can compact;
-//   stage A (per row tile): dv2 = M2^T g, blend and shift transposes, and
-//   the mirror undoubling of pass 2, giving dy1 [B,C,N,We];
-//   stage B (per column tile): dv1 = M1^T dy1, blend and shift transposes,
-//   and the row undoubling of pass 1, giving dx [B,C,N,Wep] (zero in
-//   columns >= We).
+// gather form, without atomics, in three launches:
+//   tap lists: one pass over M1 and M2, coalesced along their rows with one
+//   lane per column l < P, writes each column's nonzeros as (row, value)
+//   in ascending row order plus a count per column: cnt [B,P],
+//   idx/val [B,P,R] (R = rows of M; only cnt entries are written);
+//   stage A (per tile of kSub rows, all channels): g's tile into shared
+//   memory, dv2 = M2^T g from the lists of M2, then the blend and shift
+//   transposes and the mirror undoubling of pass 2, giving dy1 [B,C,N,We];
+//   stage B (per tile of kSub columns, all channels): the same along the
+//   columns, with dy1's tile and the lists of M1, giving dx [B,C,N,Wep]
+//   (zero in columns >= We).
+// A block reads its image's lists once and sums each tap into every
+// channel's accumulator (up to kMaxCc channels a round; the TPU kernel
+// looped over C inside one program too). Every output element is one
+// thread's sum over its ascending list, so two calls give bitwise-equal dx.
+// Bytes: the chain must read g, M1 and M2 and write dx (the same 105 MB as
+// the forward); it moves M once, the lists (13 taps a row of M, 3.4 MB),
+// g once, dy1 twice and dx once, about 184 MB. What bounds it at the main
+// path's shapes is instruction issue in the gathers (a tap costs two
+// shuffles and a shared-memory load per channel), not bytes.
 //
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError().
@@ -56,8 +68,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;                 // rows (fwd, bwd A) or columns (bwd B) per block
-constexpr int kTileStride = kTile + 1;    // padded so lanes spread over banks
+constexpr int kTile = 32;                 // rows per forward block
 constexpr size_t kMaxSmem = 232448;       // per-block dynamic shared memory on sm_90
 
 struct Dims {
@@ -166,121 +177,256 @@ __global__ void __launch_bounds__(kThreads) twopass_fwd_kernel(
   }
 }
 
-// in [B, R, S] (first Cn columns used) -> out [B, Cn, R]. grid (ceil(Cn/32),
-// ceil(R/32), B), block (32, 8).
-__global__ void transpose_kernel(const float* __restrict__ in, float* __restrict__ out,
-                                 int R, int S, int Cn) {
-  __shared__ float tile[32][33];
-  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32, b = blockIdx.z;
-  const float* ib = in + (size_t)b * R * S;
-  float* ob = out + (size_t)b * Cn * R;
-  for (int i = threadIdx.y; i < 32; i += 8) {
-    const int r = r0 + i, col = c0 + threadIdx.x;
-    if (r < R && col < Cn) tile[i][threadIdx.x] = ib[(size_t)r * S + col];
+// ---------------------------------------------------------------- backward
+
+constexpr int kListGroups = 8;            // row groups per column in the list builder
+constexpr int kBwdThreads = 512;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kSub = 8;                   // rows (stage A) or columns (stage B) per block
+constexpr int kSegs = kBwdThreads / kSub; // segments of kSub lanes (the output phases)
+constexpr int kVec = 4;                   // lines a lane sums in the gather (a float4)
+constexpr int kLanes = kSub / kVec;       // lanes a column of M takes in the gather
+constexpr int kStep = 8;                  // taps a column loads at once, kStep / kLanes a lane
+static_assert(kVec == 4 && kSub % kVec == 0 && 32 % kLanes == 0 && kStep % kLanes == 0,
+              "tile shapes");
+constexpr int kSubStride = kSub + 1;      // dv's column stride, odd so lanes spread over banks
+constexpr int kMaxCc = 4;                 // channels accumulated at once
+
+// One list set: column l of image b holds cnt[b*P + l] taps at
+// idx/val[(b*P + l)*R + k], k ascending with the row index.
+struct Lists {
+  int* cnt;
+  int* idx;
+  float* val;
+};
+
+// grid (ceil(max(P1, P2) / 32), B, 2): z = 0 lists M1's columns (R = N
+// rows), z = 1 M2's (R = out). block (32, kListGroups): lane x is column
+// l0 + x, and row group y counts, then writes, the nonzeros of rows
+// [y*span, (y+1)*span) after those of the groups above it. The second
+// read of the rows hits L1 (a block spans 32 columns of R rows).
+__global__ void __launch_bounds__(32 * kListGroups) twopass_lists_kernel(
+    const float* __restrict__ M1, const float* __restrict__ M2, Lists l1, Lists l2, Dims d) {
+  __shared__ int part[kListGroups][32];
+  const bool second = blockIdx.z != 0;
+  const int P = second ? d.P2 : d.P1;
+  if ((int)blockIdx.x * 32 >= P) return;   // the whole block: before any barrier
+  const int R = second ? d.out : d.N;
+  const int Pp = second ? d.P2p : d.P1p;
+  const Lists out = second ? l2 : l1;
+  const int l = blockIdx.x * 32 + threadIdx.x, b = blockIdx.y;
+  const bool live = l < P;
+  const int span = (R + kListGroups - 1) / kListGroups;
+  const int r0 = threadIdx.y * span, r1 = min(R, r0 + span);
+  const float* col = (second ? M2 : M1) + (size_t)b * R * Pp + l;
+
+  int n = 0;
+  if (live) {
+#pragma unroll 8
+    for (int r = r0; r < r1; ++r) n += __ldg(col + (size_t)r * Pp) != 0.f;
   }
+  part[threadIdx.y][threadIdx.x] = n;
   __syncthreads();
-  for (int i = threadIdx.y; i < 32; i += 8) {
-    const int col = c0 + i, r = r0 + threadIdx.x;
-    if (col < Cn && r < R) ob[(size_t)col * R + r] = tile[threadIdx.x][i];
+  if (!live) return;
+  int k = 0;
+  for (int j = 0; j < (int)threadIdx.y; ++j) k += part[j][threadIdx.x];
+  if (threadIdx.y == kListGroups - 1) out.cnt[(size_t)b * P + l] = k + n;
+  int* idx = out.idx + ((size_t)b * P + l) * R;
+  float* val = out.val + ((size_t)b * P + l) * R;
+  for (int r = r0; r < r1; ++r) {
+    const float m = __ldg(col + (size_t)r * Pp);
+    if (m != 0.f) {
+      idx[k] = r;
+      val[k] = m;
+      ++k;
+    }
   }
 }
 
-// Stage A. grid (ceil(N / kTile), C, B). Shared: dv2 [P2][kTile+1], tap lists.
-__global__ void __launch_bounds__(kThreads) twopass_bwd_rows_kernel(
-    const float* __restrict__ g, const int* __restrict__ t2, const float* __restrict__ f2,
-    const float* __restrict__ M2T, float* __restrict__ dy1, Dims d) {
-  extern __shared__ float smem[];
-  float* dv = smem;
-  int* idx_all = reinterpret_cast<int*>(dv + (size_t)d.P2 * kTileStride);
-  float* val_all = reinterpret_cast<float*>(idx_all + kWarps * d.out);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* idx = idx_all + warp * d.out;
-  float* val = val_all + warp * d.out;
-
-  const int r0 = blockIdx.x * kTile, c = blockIdx.y, b = blockIdx.z;
-  const int rows = min(kTile, d.N - r0);
-  const float* gc = g + (size_t)(b * d.C + c) * d.out * d.N;
-
-  // dv2[l, r] = sum_o M2[o, l] g[o, r]: one warp per l, lanes over rows
-  for (int l = warp; l < d.P2; l += kWarps) {
-    const int n = compact_row(M2T + ((size_t)b * d.P2 + l) * d.out, d.out, idx, val);
-    float acc = 0.f;
-    if (lane < rows)
-      for (int k = 0; k < n; ++k) acc = fmaf(val[k], gc[(size_t)idx[k] * d.N + r0 + lane], acc);
-    dv[l * kTileStride + lane] = acc;
-    __syncwarp();
+// Copies the tile z_j[r*stride + s], j < cc, r < R, s < kSub (zero for
+// s >= live) of the cc channels of z (channel stride cstride) into
+// tile [cc][R][kSub]: every element of z is read from memory once, and the
+// gather below reads it from shared memory once for each tap of its row.
+// 16-byte loads where the tile is whole and aligned.
+__device__ void load_tile(const float* __restrict__ z, size_t cstride, int stride, int live,
+                          int R, int cc, float* tile) {
+  constexpr int kV = kSub / 4;
+  if (live == kSub && stride % 4 == 0 && cstride % 4 == 0 && ((size_t)z & 15) == 0) {
+    float4* t4 = reinterpret_cast<float4*>(tile);
+    const int n = cc * R * kV;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < n; e += kBwdThreads) {
+      const int v = e % kV, r = (e / kV) % R, j = e / (kV * R);
+      t4[e] = __ldg(reinterpret_cast<const float4*>(z + j * cstride + (size_t)r * stride) + v);
+    }
+    return;
   }
-  __syncthreads();
+  const int n = cc * R * kSub;
+  for (int e = threadIdx.x; e < n; e += kBwdThreads) {
+    const int s = e % kSub, r = (e / kSub) % R, j = e / (kSub * R);
+    tile[e] = s < live ? z[j * cstride + (size_t)r * stride + s] : 0.f;
+  }
+}
 
-  // dz(m) = (1-f) dv[(m-t) mod P2] + f dv[(m-t-1) mod P2];
-  // dy1[r, w] = dz(w) + dz(P2-w) for interior w (mirror undoubling)
-  for (int rr = warp; rr < rows; rr += kWarps) {
-    const int r = r0 + rr;
-    const int t = norm_shift(t2[(size_t)b * d.N + r], d.P2);
-    const float f = f2[(size_t)b * d.N + r];
-    float* dyr = dy1 + ((size_t)(b * d.C + c) * d.N + r) * d.We;
-    for (int w = lane; w < d.We; w += 32) {
-      int i0 = wrap_down(w - t, d.P2);
-      int i1 = wrap_down(i0 - 1, d.P2);
-      float s = (1.f - f) * dv[i0 * kTileStride + rr] + f * dv[i1 * kTileStride + rr];
-      if (w > 0 && w < d.We - 1) {
-        i0 = wrap_down(d.P2 - w - t, d.P2);
-        i1 = wrap_down(i0 - 1, d.P2);
-        s += (1.f - f) * dv[i0 * kTileStride + rr] + f * dv[i1 * kTileStride + rr];
+// dv[j][l][s] = sum_k val[l,k] tile[j][idx[l,k]][s] for the cc channels j
+// and the tile's lines s, with cnt (the P counts) in shared memory. A warp
+// takes 32 / kLanes neighbouring columns of M at once, kLanes lanes each
+// (a lane sums kVec lines s), and steps through their taps together up to
+// the largest count among them, so that its shuffles never diverge: the
+// lanes of a column load kStep of its taps at once and pass them round by
+// shuffles, and each tap's kVec lines of the tile are one 16-byte load. A
+// tap past a column's count adds nothing.
+__device__ void gather_taps(const float* tile, const int* cnt, const int* __restrict__ idx,
+                            const float* __restrict__ val, int P, int R, int cc, float* dv) {
+  constexpr int kCols = 32 / kLanes, kPerLane = kStep / kLanes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int seg = lane / kLanes, s = lane % kLanes;
+  const float* ts = tile + kVec * s;
+  for (int l0 = warp * kCols; l0 < P; l0 += kBwdWarps * kCols) {
+    const int l = l0 + seg;
+    const int n = l < P ? cnt[l] : 0;
+    int most = n;
+#pragma unroll
+    for (int o = 16; o >= kLanes; o >>= 1) most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
+    const int* il = idx + (size_t)l * R;
+    const float* vl = val + (size_t)l * R;
+    float4 acc[kMaxCc] = {};
+    for (int k0 = 0; k0 < most; k0 += kStep) {
+      int r[kPerLane];
+      float m[kPerLane];
+#pragma unroll
+      for (int u = 0; u < kPerLane; ++u) {
+        const int k = k0 + u * kLanes + s;
+        r[u] = k < n ? il[k] * kSub : 0;
+        m[u] = k < n ? vl[k] : 0.f;
       }
-      dyr[w] = s;
+#pragma unroll
+      for (int q = 0; q < kStep; ++q) {
+        const int rq = __shfl_sync(0xffffffffu, r[q / kLanes], q % kLanes, kLanes);
+        const float mq = __shfl_sync(0xffffffffu, m[q / kLanes], q % kLanes, kLanes);
+        if (k0 + q < n) {
+#pragma unroll
+          for (int j = 0; j < kMaxCc; ++j) {
+            if (j < cc) {
+              const float4 x = *reinterpret_cast<const float4*>(ts + rq + j * R * kSub);
+              acc[j].x = fmaf(mq, x.x, acc[j].x);
+              acc[j].y = fmaf(mq, x.y, acc[j].y);
+              acc[j].z = fmaf(mq, x.z, acc[j].z);
+              acc[j].w = fmaf(mq, x.w, acc[j].w);
+            }
+          }
+        }
+      }
+    }
+    if (l < P) {
+#pragma unroll
+      for (int j = 0; j < kMaxCc; ++j) {
+        if (j < cc) {
+          float* out = dv + (j * P + l) * kSubStride + kVec * s;
+          out[0] = acc[j].x;
+          out[1] = acc[j].y;
+          out[2] = acc[j].z;
+          out[3] = acc[j].w;
+        }
+      }
     }
   }
 }
 
-// Stage B. grid (ceil(Wep / kTile), C, B). Shared: dv1 [P1][kTile+1], tap lists.
-__global__ void __launch_bounds__(kThreads) twopass_bwd_cols_kernel(
-    const float* __restrict__ dy1, const int* __restrict__ t1, const float* __restrict__ f1,
-    const float* __restrict__ M1T, float* __restrict__ dx, Dims d) {
-  extern __shared__ float smem[];
-  float* dv = smem;
-  int* idx_all = reinterpret_cast<int*>(dv + (size_t)d.P1 * kTileStride);
-  float* val_all = reinterpret_cast<float*>(idx_all + kWarps * d.N);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* idx = idx_all + warp * d.N;
-  float* val = val_all + warp * d.N;
+// The P counts of one list set into shared memory.
+__device__ void load_counts(const int* __restrict__ cnt, int P, int* out) {
+  for (int l = threadIdx.x; l < P; l += kBwdThreads) out[l] = cnt[l];
+}
 
-  const int w0 = blockIdx.x * kTile, c = blockIdx.y, b = blockIdx.z;
-  const int cols = min(kTile, d.We - w0);     // live columns; <= 0 in the padding
-  const int w = w0 + lane;
-  const float* dyc = dy1 + (size_t)(b * d.C + c) * d.N * d.We;
-  float* dxc = dx + (size_t)(b * d.C + c) * d.N * d.Wep;
-
-  if (cols > 0) {
-    // dv1[l, w] = sum_r M1[r, l] dy1[r, w]: one warp per l, lanes over columns
-    for (int l = warp; l < d.P1; l += kWarps) {
-      const int n = compact_row(M1T + ((size_t)b * d.P1 + l) * d.N, d.N, idx, val);
-      float acc = 0.f;
-      if (lane < cols)
-        for (int k = 0; k < n; ++k) acc = fmaf(val[k], dyc[(size_t)idx[k] * d.We + w], acc);
-      dv[l * kTileStride + lane] = acc;
-      __syncwarp();
-    }
+// Transpose of the blend, the shift and the mirror doubling along one
+// line, at output position i < n: dz(m) = (1-f) dv[(m-t) mod P] +
+// f dv[(m-t-1) mod P]; the result is dz(i) + dz(P-i) for 0 < i < n-1,
+// else dz(i). dv points at the line's entry of column 0 (column stride
+// kSubStride).
+__device__ __forceinline__ float undouble(const float* dv, int i, int t, float f, int P, int n) {
+  int i0 = wrap_down(i - t, P);
+  int i1 = wrap_down(i0 - 1, P);
+  float s = (1.f - f) * dv[i0 * kSubStride] + f * dv[i1 * kSubStride];
+  if (i > 0 && i < n - 1) {
+    i0 = wrap_down(P - i - t, P);
+    i1 = wrap_down(i0 - 1, P);
+    s += (1.f - f) * dv[i0 * kSubStride] + f * dv[i1 * kSubStride];
   }
-  __syncthreads();
+  return s;
+}
 
-  const bool live = lane < cols;
+// Stage A. grid (ceil(N / kSub), B). Shared: g tile [cc][out][kSub], dv2
+// [cc][P2][kSubStride], M2's counts [P2].
+__global__ void __launch_bounds__(kBwdThreads) twopass_bwd_rows_kernel(
+    const float* __restrict__ g, const int* __restrict__ t2, const float* __restrict__ f2,
+    Lists l2, float* __restrict__ dy1, Dims d, int cc) {
+  extern __shared__ float smem[];
+  float* tile = smem;
+  float* dv = tile + cc * d.out * kSub;
+  int* counts = reinterpret_cast<int*>(dv + cc * d.P2 * kSubStride);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * kSub, b = blockIdx.y;
+  const int rows = min(kSub, d.N - r0);
+  const size_t plane = (size_t)d.out * d.N;
+  load_counts(l2.cnt + (size_t)b * d.P2, d.P2, counts);
+  for (int c0 = 0; c0 < d.C; c0 += cc) {
+    const int nc = min(cc, d.C - c0);
+    load_tile(g + (size_t)(b * d.C + c0) * plane + r0, plane, d.N, rows, d.out, nc, tile);
+    __syncthreads();
+    // dv2[j, l, r] = sum_o M2[o, l] g[c0+j, o, r]
+    gather_taps(tile, counts, l2.idx + (size_t)b * d.P2 * d.out,
+                l2.val + (size_t)b * d.P2 * d.out, d.P2, d.out, nc, dv);
+    __syncthreads();
+    // dy1[r, w]: one warp per (channel, row), lanes over w
+    for (int task = warp; task < nc * rows; task += kBwdWarps) {
+      const int j = task / rows, rr = task - j * rows, r = r0 + rr;
+      const int t = norm_shift(t2[(size_t)b * d.N + r], d.P2);
+      const float f = f2[(size_t)b * d.N + r];
+      const float* dvr = dv + j * d.P2 * kSubStride + rr;
+      float* dyr = dy1 + ((size_t)(b * d.C + c0 + j) * d.N + r) * d.We;
+      for (int w = lane; w < d.We; w += 32) dyr[w] = undouble(dvr, w, t, f, d.P2, d.We);
+    }
+    __syncthreads();
+  }
+}
+
+// Stage B. grid (ceil(Wep / kSub), B). Shared: dy1 tile [cc][N][kSub], dv1
+// [cc][P1][kSubStride], M1's counts [P1].
+__global__ void __launch_bounds__(kBwdThreads) twopass_bwd_cols_kernel(
+    const float* __restrict__ dy1, const int* __restrict__ t1, const float* __restrict__ f1,
+    Lists l1, float* __restrict__ dx, Dims d, int cc) {
+  extern __shared__ float smem[];
+  float* tile = smem;
+  float* dv = tile + cc * d.N * kSub;
+  int* counts = reinterpret_cast<int*>(dv + cc * d.P1 * kSubStride);
+  const int seg = threadIdx.x / kSub, s = threadIdx.x % kSub;
+  const int w0 = blockIdx.x * kSub, b = blockIdx.y;
+  const int cols = min(kSub, d.We - w0);     // live columns; <= 0 in the padding
+  const int w = w0 + s;
+  const bool live = s < cols;
   const int t = live ? norm_shift(t1[(size_t)b * d.Wep + w], d.P1) : 0;
   const float f = live ? f1[(size_t)b * d.Wep + w] : 0.f;
-  if (w >= d.Wep) return;
-  for (int i = warp; i < d.N; i += kWarps) {
-    float s = 0.f;
-    if (live) {
-      int i0 = wrap_down(i - t, d.P1);
-      int i1 = wrap_down(i0 - 1, d.P1);
-      s = (1.f - f) * dv[i0 * kTileStride + lane] + f * dv[i1 * kTileStride + lane];
-      if (i > 0 && i < d.N - 1) {
-        i0 = wrap_down(d.P1 - i - t, d.P1);
-        i1 = wrap_down(i0 - 1, d.P1);
-        s += (1.f - f) * dv[i0 * kTileStride + lane] + f * dv[i1 * kTileStride + lane];
+  const size_t plane = (size_t)d.N * d.We;
+  if (cols > 0) load_counts(l1.cnt + (size_t)b * d.P1, d.P1, counts);
+  for (int c0 = 0; c0 < d.C; c0 += cc) {
+    const int nc = min(cc, d.C - c0);
+    if (cols > 0) {
+      load_tile(dy1 + (size_t)(b * d.C + c0) * plane + w0, plane, d.We, cols, d.N, nc, tile);
+      __syncthreads();
+      // dv1[j, l, w] = sum_r M1[r, l] dy1[c0+j, r, w]
+      gather_taps(tile, counts, l1.idx + (size_t)b * d.P1 * d.N,
+                  l1.val + (size_t)b * d.P1 * d.N, d.P1, d.N, nc, dv);
+    }
+    __syncthreads();
+    // dx[i, w]: one segment per (channel, row), lanes over the tile's columns
+    if (w < d.Wep) {
+      for (int task = seg; task < nc * d.N; task += kSegs) {
+        const int j = task / d.N, i = task - j * d.N;
+        dx[((size_t)(b * d.C + c0 + j) * d.N + i) * d.Wep + w] =
+            live ? undouble(dv + j * d.P1 * kSubStride + s, i, t, f, d.P1, d.N) : 0.f;
       }
     }
-    dxc[(size_t)i * d.Wep + w] = s;
+    __syncthreads();
   }
 }
 
@@ -289,12 +435,19 @@ size_t fwd_smem(const Dims& d) {
   return sizeof(float) * (size_t)kTile * (d.We + 1) + (sizeof(int) + sizeof(float)) * (size_t)kWarps * cap;
 }
 
-size_t bwd_rows_smem(const Dims& d) {
-  return sizeof(float) * (size_t)d.P2 * kTileStride + (sizeof(int) + sizeof(float)) * (size_t)kWarps * d.out;
+// A backward stage's shared memory: the tile [cc][R][kSub], dv
+// [cc][P][kSubStride] and the P counts.
+size_t bwd_smem(int P, int R, int cc) {
+  return sizeof(float) * ((size_t)cc * ((size_t)R * kSub + (size_t)P * kSubStride) + P);
 }
 
-size_t bwd_cols_smem(const Dims& d) {
-  return sizeof(float) * (size_t)d.P1 * kTileStride + (sizeof(int) + sizeof(float)) * (size_t)kWarps * d.N;
+// Channels a backward block accumulates at once: up to kMaxCc, as many as
+// both stages' shared memory allows; 0 if not even one channel fits.
+int bwd_channels(const Dims& d) {
+  int cc = d.C < kMaxCc ? d.C : kMaxCc;
+  while (cc > 0 && (bwd_smem(d.P2, d.out, cc) > kMaxSmem || bwd_smem(d.P1, d.N, cc) > kMaxSmem))
+    --cc;
+  return cc;
 }
 
 template <typename K>
@@ -318,9 +471,10 @@ extern "C" {
 size_t ada_twopass_smem_bytes(int B, int C, int N, int Wep, int We, int P1, int P1p, int P2,
                               int P2p, int out) {
   const Dims d = make_dims(B, C, N, Wep, We, P1, P1p, P2, P2p, out);
+  const int cc = bwd_channels(d) > 0 ? bwd_channels(d) : 1;
   size_t m = fwd_smem(d);
-  if (bwd_rows_smem(d) > m) m = bwd_rows_smem(d);
-  if (bwd_cols_smem(d) > m) m = bwd_cols_smem(d);
+  if (bwd_smem(d.P2, d.out, cc) > m) m = bwd_smem(d.P2, d.out, cc);
+  if (bwd_smem(d.P1, d.N, cc) > m) m = bwd_smem(d.P1, d.N, cc);
   return m;
 }
 
@@ -339,37 +493,39 @@ int ada_twopass_fwd(const void* x, const void* t1, const void* f1, const void* M
   return (int)cudaGetLastError();
 }
 
-// Scratch: dy1 [B,C,N,We], M1T [B,P1,N], M2T [B,P2,out_len], all f32.
+// Scratch: dy1 [B,C,N,We] f32; the tap lists of M1 (cnt1 [B,P1] int32,
+// idx1 [B,P1,N] int32, val1 [B,P1,N] f32) and of M2 (cnt2 [B,P2], idx2 and
+// val2 [B,P2,out_len]).
 int ada_twopass_bwd(const void* g, const void* t1, const void* f1, const void* M1,
-                    const void* t2, const void* f2, const void* M2, void* dx,
-                    void* dy1, void* M1T, void* M2T,
+                    const void* t2, const void* f2, const void* M2, void* dx, void* dy1,
+                    void* cnt1, void* idx1, void* val1, void* cnt2, void* idx2, void* val2,
                     int B, int C, int N, int Wep, int We, int P1, int P1p, int P2, int P2p,
                     int out_len, void* stream) {
   const Dims d = make_dims(B, C, N, Wep, We, P1, P1p, P2, P2p, out_len);
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 tblock(32, 8);
-  transpose_kernel<<<dim3((P1 + 31) / 32, (N + 31) / 32, B), tblock, 0, s>>>(
-      (const float*)M1, (float*)M1T, N, P1p, P1);
+  const int cc = bwd_channels(d);
+  if (cc == 0) return (int)cudaErrorInvalidValue;
+  const Lists l1{(int*)cnt1, (int*)idx1, (float*)val1};
+  const Lists l2{(int*)cnt2, (int*)idx2, (float*)val2};
+  const int P = P1 > P2 ? P1 : P2;
+  twopass_lists_kernel<<<dim3((P + 31) / 32, B, 2), dim3(32, kListGroups), 0, s>>>(
+      (const float*)M1, (const float*)M2, l1, l2, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  transpose_kernel<<<dim3((P2 + 31) / 32, (out_len + 31) / 32, B), tblock, 0, s>>>(
-      (const float*)M2, (float*)M2T, out_len, P2p, P2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
 
-  size_t smem = bwd_rows_smem(d);
+  size_t smem = bwd_smem(P2, out_len, cc);
   err = allow_smem(twopass_bwd_rows_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  twopass_bwd_rows_kernel<<<dim3((N + kTile - 1) / kTile, C, B), kThreads, smem, s>>>(
-      (const float*)g, (const int*)t2, (const float*)f2, (const float*)M2T, (float*)dy1, d);
+  twopass_bwd_rows_kernel<<<dim3((N + kSub - 1) / kSub, B), kBwdThreads, smem, s>>>(
+      (const float*)g, (const int*)t2, (const float*)f2, l2, (float*)dy1, d, cc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  smem = bwd_cols_smem(d);
+  smem = bwd_smem(P1, N, cc);
   err = allow_smem(twopass_bwd_cols_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  twopass_bwd_cols_kernel<<<dim3((Wep + kTile - 1) / kTile, C, B), kThreads, smem, s>>>(
-      (const float*)dy1, (const int*)t1, (const float*)f1, (const float*)M1T, (float*)dx, d);
+  twopass_bwd_cols_kernel<<<dim3((Wep + kSub - 1) / kSub, B), kBwdThreads, smem, s>>>(
+      (const float*)dy1, (const int*)t1, (const float*)f1, l1, (float*)dx, d, cc);
   return (int)cudaGetLastError();
 }
 

@@ -39,6 +39,12 @@ all: 31 us at 3.35 TB/s. At the 128px shapes one line pass reads z and M
 and writes its output, 22-23 MB: about 7 us. M is banded (13 taps a row),
 so the work is bound by bytes; the kernels skip the zeros of M (see the
 sources' headers) and the next step is to read only M's band.
+
+The two-pass backward first lists the nonzeros of each column of M1 and M2
+(`twopass_tap_lists_plain` is that list format in plain PyTorch) and then
+sums over the lists only; `twopass_bwd_lists_plain` is the same chain in
+plain PyTorch, in the kernels' order. Both serve the tests and
+`chip_smoke.py`; the wrappers never call them.
 '''
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ _p, _i = ctypes.c_void_p, ctypes.c_int
 #: takes, and its entry points as (name, pointer args); `<source>_smem_bytes`
 #: takes the dims alone
 _ENTRIES = {
-    'ada_twopass': (10, [('ada_twopass_fwd', 8), ('ada_twopass_bwd', 11)]),
+    'ada_twopass': (10, [('ada_twopass_fwd', 8), ('ada_twopass_bwd', 15)]),
     'ada_linepass': (7, [('ada_linepass_fwd', 5), ('ada_linepass_bwd', 6)]),
 }
 _libs = {}
@@ -106,6 +112,61 @@ def twopass_fused_plain(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
     y1 = torch.einsum('brl,bclw->bcrw', M1[:, :, :P1], v1)[..., :We]
     v2 = _shift_blend(y1.transpose(2, 3), t2, f2, P2, We)        # [B,C,P2,N]
     return torch.einsum('bol,bcln->bcon', M2[:, :, :P2], v2)[:, :, :out_len]
+
+
+def twopass_tap_lists_plain(M, P):
+    '''The tap lists the backward kernel chain builds from M [B, R, Pp]:
+    for each column l < P, count [B, P] nonzeros M[b, r, l], listed as
+    idx [B, P, R] (int32, rows ascending) and val [B, P, R]; entries at or
+    past the count are 0 here (the kernel leaves them unwritten).'''
+    cols = M[:, :, :P].transpose(1, 2)                             # [B, P, R]
+    nonzero = cols != 0
+    count = nonzero.sum(-1, dtype=torch.int32)
+    rows = torch.sort((~nonzero).int(), dim=-1, stable=True).indices
+    keep = torch.arange(M.shape[1], device=M.device) < count[..., None]
+    return (count, torch.where(keep, rows, 0).int(),
+            torch.where(keep, cols.gather(-1, rows), 0.0))
+
+
+def _gather_taps(z, count, idx, val):
+    '''dv[b, c, l, s] = sum over k < count[b, l], ascending, of
+    val[b, l, k] z[b, c, idx[b, l, k], s]: M^T z from M's tap lists.'''
+    B, C, _, S = z.shape
+    P = count.shape[1]
+    dv = z.new_zeros((B, C, P, S))
+    for k in range(int(count.max())):
+        live = count > k
+        rows = torch.where(live, idx[:, :, k], 0).long()
+        taken = z.gather(2, rows[:, None, :, None].expand(B, C, P, S))
+        dv = dv + torch.where(live, val[:, :, k], 0.0)[:, None, :, None] * taken
+    return dv
+
+
+def _undouble(dv, t, f, P, n):
+    '''The transpose of `_shift_blend` along axis 2 of dv [B, C, P, L]:
+    dz(m) = (1-f) dv[(m-t) mod P] + f dv[(m-t-1) mod P], folded onto
+    n lines through the mirror: dz(i) + dz(P-i) inside, dz(i) at both ends.'''
+    B, C, _, L = dv.shape
+    m = torch.arange(P, device=dv.device)[None, :, None]
+    i0 = torch.remainder(m - t[:, None, :].long(), P)
+    i1 = torch.remainder(i0 - 1, P)
+    f = f[:, None, None, :]
+    dz = ((1 - f) * dv.gather(2, i0[:, None].expand(B, C, P, L))
+          + f * dv.gather(2, i1[:, None].expand(B, C, P, L)))
+    inner = dz[:, :, P - torch.arange(1, n - 1, device=dv.device)]
+    return torch.cat([dz[:, :, :1], dz[:, :, 1:n - 1] + inner, dz[:, :, n - 1:n]], dim=2)
+
+
+def twopass_bwd_lists_plain(g, t1, f1, t2, f2, lists1, lists2, P1, P2, We):
+    '''dx [B, C, N, Wep] from g [B, C, out, N] and the tap lists of M1 and
+    M2 ((count, idx, val) each, as `twopass_tap_lists_plain` gives them),
+    in the kernel chain's order: stage A (M2^T g by the lists, then the
+    pass-2 blend/shift transposes and mirror undoubling, per row), then
+    stage B (the same along the columns with M1); zero in columns >= We.'''
+    N, Wep = g.shape[3], t1.shape[1]
+    dy1 = _undouble(_gather_taps(g, *lists2), t2, f2, P2, We).transpose(2, 3)
+    dx = _undouble(_gather_taps(dy1, *lists1), t1[:, :We], f1[:, :We], P1, N)
+    return torch.nn.functional.pad(dx, (0, Wep - We))
 
 
 def _check(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
@@ -155,26 +216,30 @@ def _launch_fwd(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
 
 
 def _launch_bwd(g, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
+    '''The backward kernel chain: dx, and the tap lists it built,
+    (count, idx, val) of M1 and of M2.'''
     global bwd_launches
     lib = _library('ada_twopass')
+    g = g.contiguous()
     B, C, _, N = g.shape
     Wep = t1.shape[1]
     dims = [B, C, N, Wep, We, P1, M1.shape[2], P2, M2.shape[2], out_len]
-    opts = dict(dtype=torch.float32, device=g.device)
-    dx = torch.empty((B, C, N, Wep), **opts)
-    dy1 = torch.empty((B, C, N, We), **opts)
-    M1T = torch.empty((B, P1, N), **opts)
-    M2T = torch.empty((B, P2, out_len), **opts)
+    f32 = dict(dtype=torch.float32, device=g.device)
+    i32 = dict(dtype=torch.int32, device=g.device)
+    dx = torch.empty((B, C, N, Wep), **f32)
+    dy1 = torch.empty((B, C, N, We), **f32)
+    lists = [(torch.empty((B, P), **i32), torch.empty((B, P, R), **i32),
+              torch.empty((B, P, R), **f32)) for P, R in ((P1, N), (P2, out_len))]
     err = lib.ada_twopass_bwd(
         g.data_ptr(), t1.data_ptr(), f1.data_ptr(), M1.data_ptr(),
-        t2.data_ptr(), f2.data_ptr(), M2.data_ptr(), dx.data_ptr(),
-        dy1.data_ptr(), M1T.data_ptr(), M2T.data_ptr(), *dims,
+        t2.data_ptr(), f2.data_ptr(), M2.data_ptr(), dx.data_ptr(), dy1.data_ptr(),
+        *(a.data_ptr() for tap_lists in lists for a in tap_lists), *dims,
         torch.cuda.current_stream(g.device).cuda_stream)
     if err:
         raise RuntimeError(f'ada_twopass_bwd failed: CUDA error {err} '
                            f'(shared memory {lib.ada_twopass_smem_bytes(*dims)} B)')
     bwd_launches += 1
-    return dx
+    return dx, *lists
 
 
 class _TwoPassFused(torch.autograd.Function):
@@ -191,7 +256,7 @@ class _TwoPassFused(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         t1, f1, M1, t2, f2, M2 = ctx.saved_tensors
-        dx = _launch_bwd(g.contiguous(), t1, f1, M1, t2, f2, M2, *ctx.dims)
+        dx = _launch_bwd(g, t1, f1, M1, t2, f2, M2, *ctx.dims)[0]
         return (dx,) + (None,) * 10
 
 

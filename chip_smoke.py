@@ -11,12 +11,16 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      shapes (f32, batch 32): the two-pass warp pair at 256px, the line-pass
      pair at 128px (pass 1 and pass 2); time kernel, plain version and the
      byte/operation bound; check the kernel-path warp against the dense
-     warp at both sizes;
+     warp at both sizes; hold the two-pass backward's tap lists against
+     `twopass_tap_lists_plain` exactly, check that two backward calls give
+     bitwise-equal dx, and print the backward chain's own time and its
+     parts (list build, stage A, stage B) in ms from torch.profiler;
   4. drive the StyleGAN2-ADA 256px training step at full width (bench.py's
      settings, bf16 compute, p starting at 0.2, the default ADA knobs), one
      whole 16-step lazy-regularization cycle, with the two-pass kernels'
      launch counts set to 0 just before and read just after; check finite
-     losses and the launch counts the cadence implies;
+     losses and the launch counts the cadence implies; profile one step of
+     each variant, with the two-pass kernels' rows;
   5. drive the ADA recipe (StyleGAN3 + AugmentPipe) at its 128px CLI
      defaults at full width (batch 32, bf16 compute, p starting at 0.2),
      one 16-step cycle of 15 plain steps and 1 additive-R1 step, with the
@@ -214,8 +218,51 @@ def check_kernels(dev):
     images, G_inv, args = _main_path_warp_inputs(dev)
     held = _hold('twopass', agc.twopass_fused, agc.twopass_fused_plain, args[0], args[1:],
                  seed=1)
+    check_twopass_bwd_chain(args)
     return images, G_inv, _pair_entries('ada_twopass', (186, 216), held,
                                         _bound(*_twopass_work(*args)))
+
+
+#: the backward chain's kernels, by the name the profiler shows, in order
+TWOPASS_BWD_PARTS = (('list build', 'twopass_lists_kernel'),
+                     ('stage A', 'twopass_bwd_rows_kernel'),
+                     ('stage B', 'twopass_bwd_cols_kernel'))
+
+
+def check_twopass_bwd_chain(args, calls=10, seed=1):
+    '''The backward chain at the main path's draws: the tap lists it built
+    equal `twopass_tap_lists_plain` exactly (counts, rows, values), two
+    calls give bitwise-equal dx; the chain's mean device time (no
+    autograd) and the device time of each part (list build, stage A,
+    stage B) over `calls` calls under torch.profiler.'''
+    from animeface_tpu_torch.nnutils import ada_geometry_cuda as agc
+
+    x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len = args
+    g = torch.randn((x.shape[0], x.shape[1], out_len, x.shape[2]), device=x.device,
+                    generator=torch.Generator(device=x.device).manual_seed(seed))
+
+    def bwd():
+        return agc._launch_bwd(g, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len)
+
+    dx, *lists = bwd()
+    for name, (count, idx, val), M, P in zip(('M1', 'M2'), lists, (args[3], args[6]),
+                                             (args[7], args[8])):
+        want = agc.twopass_tap_lists_plain(M, P)
+        keep = torch.arange(idx.shape[2], device=idx.device) < count[..., None]
+        if not (torch.equal(count, want[0]) and torch.equal(idx[keep], want[1][keep])
+                and torch.equal(val[keep], want[2][keep])):
+            raise AssertionError(f'the tap lists of {name} differ from twopass_tap_lists_plain')
+        print(f'tap lists of {name} {tuple(M.shape)}: {int(count.sum())} taps, at most '
+              f'{int(count.max())} in a column, equal to the plain lists')
+    if not torch.equal(dx, bwd()[0]):
+        raise AssertionError('two backward calls on the same inputs gave different dx')
+    print('ada_twopass_bwd: two calls give bitwise-equal dx')
+    print(f'ada_twopass_bwd chain alone (no autograd): {_time_ms(bwd):.4f} ms a call')
+    rows = profile_step(f'{calls} ada_twopass_bwd calls', lambda: [bwd() for _ in range(calls)])
+    for label, kernel in TWOPASS_BWD_PARTS:
+        ms = sum(r[0] for r in rows if kernel in r[2]) / calls if rows else None
+        print(f'ada_twopass_bwd part {label} ({kernel}): '
+              + (f'{ms:.4f} ms a call' if ms is not None else 'not measured'))
 
 
 def run_main_path(dev, card):
@@ -298,14 +345,18 @@ def run_main_path(dev, card):
           f'{BATCH * D_K / dt:.2f} images/s on {card}')
     print(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     for name, variant in zip(('adversarial', 'pl', 'r1+pl'), steps.values()):
-        profile_step(name, variant, state, real)
+        for ms, count, key in profile_step(name, variant, state, real):
+            if 'twopass' in key:
+                print(f'  two-pass: {ms:9.3f} ms  x{count:5d}  {key[:100]}')
     return launches
 
 
 def profile_step(name, step, *args):
     '''Device time by kernel over one call step(*args) (torch.profiler),
-    and the device's busy share of its wall time under the profiler.
-    Returns the rows (ms, count, kernel name), largest first.'''
+    and the device's busy share of its wall time under the profiler. User
+    annotations (e.g. `Optimizer.step#Adam.step`) span kernels already
+    counted, so they are left out. Returns the rows (ms, count, kernel
+    name), largest first.'''
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
 
@@ -317,7 +368,8 @@ def profile_step(name, step, *args):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not getattr(e, 'is_user_annotation', False)),
                   reverse=True)
     if not rows:
         print('profile: the profiler recorded no device time (busy share not measured)')

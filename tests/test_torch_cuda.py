@@ -33,9 +33,10 @@ def cuda():
     return torch.device('cuda')
 
 
-def _inputs(B, C, N, Wep, We, band, seed):
+def _inputs(B, C, N, Wep, We, band, seed, slope=(0.7, 1.4), wrap=False):
     '''Random pass parameters: M banded (|cyclic distance| < 6.5 around a
-    sloped line, as `_pass_params` builds it) or dense (band=None).'''
+    line of a slope drawn from `slope`, as `_pass_params` builds it; with
+    `wrap`, a line that crosses the end of the period) or dense (band=None).'''
     rng = np.random.default_rng(seed)
     P1, P2 = 2 * N - 2, 2 * We - 2
     P1p, P2p = -(-P1 // 8) * 8, -(-P2 // 8) * 8
@@ -43,8 +44,11 @@ def _inputs(B, C, N, Wep, We, band, seed):
     def matrix(rows, P, Pp):
         M = rng.standard_normal((B, rows, Pp)).astype(np.float32)
         if band is not None:
-            q = (rng.uniform(0.7, 1.4, (B, 1, 1)) * np.arange(rows)[None, :, None]
-                 + rng.uniform(-P, P, (B, 1, 1)))
+            a = rng.uniform(*slope, (B, 1, 1))
+            base = rng.uniform(-P, P, (B, 1, 1))
+            if wrap:
+                base = P - a * rows / 2
+            q = a * np.arange(rows)[None, :, None] + base
             d = np.mod(q - np.arange(Pp)[None, None, :] + P / 2, P) - P / 2
             M = np.where(np.abs(d) < band, M, 0.0).astype(np.float32)
         M[:, :, P:] = 0.0
@@ -59,14 +63,25 @@ def _inputs(B, C, N, Wep, We, band, seed):
             P1, P2, We, N)
 
 
-@pytest.mark.parametrize('B,C,N,Wep,We,band', [
-    (2, 3, 16, 40, 32, 6.5),        # padded canvas columns (Wep > We)
-    (2, 3, 24, 48, 48, None),       # dense M: any M gives the right answer
-    (4, 3, 256, 384, 384, 6.5),     # the 256px main-path shapes
-])
-def test_twopass_kernels_match_plain(cuda, B, C, N, Wep, We, band):
-    args = _inputs(B, C, N, Wep, We, band, seed=N)
-    args = tuple(a.to(cuda) if torch.is_tensor(a) else a for a in args)
+TWOPASS_PARAMS = 'B,C,N,Wep,We,band,slope,wrap'
+TWOPASS_CASES = [
+    (2, 3, 16, 40, 32, 6.5, (0.7, 1.4), False),      # padded canvas columns (Wep > We)
+    (2, 3, 24, 48, 48, None, (0.7, 1.4), False),     # dense M: any M gives the right answer
+    (4, 3, 256, 384, 384, 6.5, (0.7, 1.4), False),   # the 256px main-path shapes
+    (2, 3, 256, 384, 384, 6.5, (0.05, 0.05), False),  # slope 0.05: columns full to the rows
+    (2, 3, 256, 384, 384, 6.5, (3.0, 4.0), False),   # slope 3-4: few taps a column, wrapping
+    (2, 3, 64, 96, 96, 6.5, (0.7, 1.4), True),       # bands across the cyclic period
+]
+
+
+def _cuda_inputs(cuda, B, C, N, Wep, We, band, slope, wrap):
+    args = _inputs(B, C, N, Wep, We, band, seed=N, slope=slope, wrap=wrap)
+    return tuple(a.to(cuda) if torch.is_tensor(a) else a for a in args)
+
+
+@pytest.mark.parametrize(TWOPASS_PARAMS, TWOPASS_CASES)
+def test_twopass_kernels_match_plain(cuda, B, C, N, Wep, We, band, slope, wrap):
+    args = _cuda_inputs(cuda, B, C, N, Wep, We, band, slope, wrap)
     x = args[0].clone().requires_grad_(True)
     ref = agc.twopass_fused_plain(x, *args[1:])
     g = torch.randn_like(ref)
@@ -84,6 +99,37 @@ def test_twopass_kernels_match_plain(cuda, B, C, N, Wep, We, band):
     assert float((ggot - gref).abs().max()) < 1e-4 * gscale
     if Wep > We:
         assert float(ggot[..., We:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize(TWOPASS_PARAMS, TWOPASS_CASES)
+def test_twopass_tap_lists_match_plain(cuda, B, C, N, Wep, We, band, slope, wrap):
+    '''The lists the backward chain builds equal `twopass_tap_lists_plain`
+    exactly: counts, rows and values; M's columns past P are not read.'''
+    x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len = _cuda_inputs(
+        cuda, B, C, N, Wep, We, band, slope, wrap)
+    M1[:, :, P1:] = 5.0                       # junk the kernels must not read
+    M2[:, :, P2:] = 5.0
+    g = torch.randn((B, C, out_len, N), device=cuda)
+    _, *lists = agc._launch_bwd(g, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len)
+    torch.cuda.synchronize()
+    for (count, idx, val), M, P in zip(lists, (M1, M2), (P1, P2)):
+        want = agc.twopass_tap_lists_plain(M, P)
+        keep = torch.arange(idx.shape[2], device=cuda) < count[..., None]
+        assert torch.equal(count, want[0])
+        assert torch.equal(idx[keep], want[1][keep]) and torch.equal(val[keep], want[2][keep])
+
+
+def test_twopass_backward_is_deterministic(cuda):
+    '''Two backward calls on the same inputs give bitwise-equal dx (gather
+    form, every sum in its list's fixed order).'''
+    args = _cuda_inputs(cuda, *TWOPASS_CASES[2])
+    g = torch.randn((4, 3, 256, 256), device=cuda)
+    grads = []
+    for _ in range(2):
+        x = args[0].clone().requires_grad_(True)
+        (dx,) = torch.autograd.grad(agc.twopass_fused(x, *args[1:]), x, g)
+        grads.append(dx)
+    assert torch.equal(grads[0], grads[1])
 
 
 def test_twopass_kernel_rejects_bad_input(cuda):
