@@ -28,13 +28,27 @@
 // (K vanishes for |t| >= 6.5, at most 13 taps per row), so it is bound by
 // bytes. Dense matmuls over M would be 19 GFLOP in f32 on CUDA cores,
 // about ten times the byte bound, so this design never multiplies zeros:
-// each warp compacts one row of M into (index, value) lists in shared
-// memory with a ballot and then sums over those taps only. That keeps M a
-// plain input (any M gives the right answer) while the work follows the
-// band. What it does not yet do: every forward block re-reads the whole M2
-// of its image and gathers x through L1/L2, so it moves several times the
-// bound's bytes. Reading only the band of M, or evaluating K in-kernel, is
-// the next step.
+// it lists the nonzeros of M once per call and sums over those taps only.
+// That keeps M a plain input (any M gives the right answer) while the work
+// follows the band.
+//
+// Forward, in two launches:
+//   row lists: one pass over M1 and M2, a warp per row (coalesced along
+//   it, ballot compaction), writes each row's nonzeros as (column, value)
+//   in ascending column order plus a count per row: rcnt [B,R],
+//   ridx/rval [B,R,P] (only rcnt entries are written);
+//   fused (per tile of kFwdRows rows of y1, all channels): pass 1 into a
+//   y1 tile in shared memory from the lists of M1, then pass 2 from the
+//   lists of M2 into out.
+// A block computes each tap's source rows or columns once for all its
+// channels; the TPU kernel also looped over C inside one program. Pass 1
+// gathers x along its columns at a shift that changes from column to
+// column, so read straight from x a warp's 32 lanes hit about 12 rows
+// (main-path draws), a 128-byte line each. The fused kernel therefore
+// copies, for each chunk of 32 columns, the window of rows that the
+// tile's taps reach into shared memory with whole-line loads and gathers
+// there; only a window too large for it (dense M) is read from x through
+// L1/L2. No atomics: two calls give bitwise-equal outputs.
 //
 // Backward (the exact transpose; the gradient goes to x only) runs in
 // gather form, without atomics, in three launches:
@@ -61,14 +75,14 @@
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError().
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;             // the forward's row-list kernel
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;                 // rows per forward block
 constexpr size_t kMaxSmem = 232448;       // per-block dynamic shared memory on sm_90
 
 struct Dims {
@@ -115,66 +129,6 @@ __device__ int compact_row(const float* __restrict__ row, int len, int* idx, flo
   }
   __syncwarp();
   return n;
-}
-
-// grid (ceil(N / kTile), C, B). Shared: y1 tile [kTile][We+1], tap lists.
-__global__ void __launch_bounds__(kThreads) twopass_fwd_kernel(
-    const float* __restrict__ x, const int* __restrict__ t1, const float* __restrict__ f1,
-    const float* __restrict__ M1, const int* __restrict__ t2, const float* __restrict__ f2,
-    const float* __restrict__ M2, float* __restrict__ out, Dims d) {
-  extern __shared__ float smem[];
-  const int ys = d.We + 1;
-  const int cap = max(d.P1, d.P2);
-  float* y1 = smem;
-  int* idx_all = reinterpret_cast<int*>(y1 + kTile * ys);
-  float* val_all = reinterpret_cast<float*>(idx_all + kWarps * cap);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* idx = idx_all + warp * cap;
-  float* val = val_all + warp * cap;
-
-  const int r0 = blockIdx.x * kTile, c = blockIdx.y, b = blockIdx.z;
-  const int rows = min(kTile, d.N - r0);
-  const float* xc = x + (size_t)(b * d.C + c) * d.N * d.Wep;
-
-  // pass 1: one warp per row of the tile, lanes over columns
-  for (int rr = warp; rr < rows; rr += kWarps) {
-    const int n = compact_row(M1 + ((size_t)b * d.N + r0 + rr) * d.P1p, d.P1, idx, val);
-    for (int w = lane; w < d.We; w += 32) {
-      const int t = norm_shift(t1[(size_t)b * d.Wep + w], d.P1);
-      const float f = f1[(size_t)b * d.Wep + w];
-      float acc = 0.f;
-      for (int k = 0; k < n; ++k) {
-        const int j0 = wrap_up(idx[k] + t, d.P1);
-        const int j1 = wrap_up(j0 + 1, d.P1);
-        const float a = xc[(size_t)mirror(j0, d.N) * d.Wep + w];
-        const float e = xc[(size_t)mirror(j1, d.N) * d.Wep + w];
-        acc = fmaf(val[k], (1.f - f) * a + f * e, acc);
-      }
-      y1[rr * ys + w] = acc;
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // pass 2: one warp per output line o, lanes over the tile's rows
-  float* outc = out + (size_t)(b * d.C + c) * d.out * d.N;
-  const bool live = lane < rows;
-  const int t = live ? norm_shift(t2[(size_t)b * d.N + r0 + lane], d.P2) : 0;
-  const float f = live ? f2[(size_t)b * d.N + r0 + lane] : 0.f;
-  const float* yr = y1 + lane * ys;
-  for (int o = warp; o < d.out; o += kWarps) {
-    const int n = compact_row(M2 + ((size_t)b * d.out + o) * d.P2p, d.P2, idx, val);
-    if (live) {
-      float acc = 0.f;
-      for (int k = 0; k < n; ++k) {
-        const int j0 = wrap_up(idx[k] + t, d.P2);
-        const int j1 = wrap_up(j0 + 1, d.P2);
-        acc = fmaf(val[k], (1.f - f) * yr[mirror(j0, d.We)] + f * yr[mirror(j1, d.We)], acc);
-      }
-      outc[(size_t)o * d.N + r0 + lane] = acc;
-    }
-    __syncwarp();
-  }
 }
 
 // ---------------------------------------------------------------- backward
@@ -430,9 +384,332 @@ __global__ void __launch_bounds__(kBwdThreads) twopass_bwd_cols_kernel(
   }
 }
 
-size_t fwd_smem(const Dims& d) {
-  const int cap = d.P1 > d.P2 ? d.P1 : d.P2;
-  return sizeof(float) * (size_t)kTile * (d.We + 1) + (sizeof(int) + sizeof(float)) * (size_t)kWarps * cap;
+// ---------------------------------------------------------------- forward
+
+constexpr int kFwdRows = 32;              // rows of y1 a forward block takes, a warp each
+
+// Row lists, the forward's: row r of image b holds cnt[b*R + r] taps at
+// idx/val[(b*R + r)*P + k], k ascending with the column l < P (R = rows
+// of M). grid (ceil(max(N, out) / kWarps), B, 2): z = 0 lists M1's rows,
+// z = 1 M2's; one warp a row, coalesced along it (compact_row).
+__global__ void __launch_bounds__(kThreads) twopass_row_lists_kernel(
+    const float* __restrict__ M1, const float* __restrict__ M2, Lists l1, Lists l2, Dims d) {
+  const bool second = blockIdx.z != 0;
+  const int R = second ? d.out : d.N;
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5), b = blockIdx.y;
+  if (r >= R) return;                      // the whole warp: compact_row is warp-collective
+  const int P = second ? d.P2 : d.P1;
+  const Lists out = second ? l2 : l1;
+  const size_t row = (size_t)b * R + r;
+  const int n = compact_row((second ? M2 : M1) + row * (second ? d.P2p : d.P1p), P,
+                            out.idx + row * P, out.val + row * P);
+  if ((threadIdx.x & 31) == 0) out.cnt[row] = n;
+}
+
+// l unwrapped around lref on a cycle of P: lref + u, |u| <= P / 2.
+__device__ __forceinline__ int unwrap(int l, int lref, int P) {
+  const int u = l - lref, half = P / 2;
+  return u > half ? u - P : (u < -half ? u + P : u);
+}
+
+// A chunk's window: the len rows of the doubled canvas from jlo (mod P1)
+// that the tile's taps reach in 32 columns w0 + lane. A tap at column l,
+// unwrapped around lref to lref + u, reads rows u + base and u + base + 1
+// of it (base: the lane's own).
+struct Window {
+  int jlo, len, base;
+};
+
+// Warp-collective. tw: the live columns' shifts t1 mod P1; wc: the lane's
+// column, clamped to a live one; the tile's taps span [lo, hi] around lref.
+__device__ Window chunk_window(const int* tw, int w0, int wc, int lref, int lo, int hi,
+                               const Dims& d) {
+  const int tref = tw[w0];
+  const int dl = unwrap(tw[wc], tref, d.P1);        // the shift around the chunk's first
+  int dmin = dl, dmax = dl;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    dmin = min(dmin, __shfl_xor_sync(0xffffffffu, dmin, off));
+    dmax = max(dmax, __shfl_xor_sync(0xffffffffu, dmax, off));
+  }
+  Window win;
+  win.len = lo <= hi ? hi - lo + dmax - dmin + 2 : 0;
+  win.jlo = lref + lo + tref + dmin;
+  win.base = dl - dmin - lo;
+  return win;
+}
+
+// Starts copying a window of the nc channels of x into xs [cc][cap][32]
+// with cp.async. vec (the chunk's 32 columns lie inside x's rows, 16-byte
+// aligned): a warp copies four 128-byte rows per instruction, 16 bytes a
+// lane; else one row, 4 bytes a lane (columns clamped to live ones).
+__device__ void stage_window(const float* __restrict__ xb, size_t plane, const Window& win,
+                             int w0, int wc, bool vec, int nc, int cap, const Dims& d,
+                             float* xs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rows_at_once = vec ? 4 : 1;
+  const int sub = vec ? lane >> 3 : 0, col = vec ? 4 * (lane & 7) : lane;
+  const float* src = xb + (vec ? w0 + col : wc);
+  const int step = rows_at_once * kFwdRows;
+  const int jj0 = norm_shift(win.jlo + rows_at_once * warp + sub, d.P1);
+  for (int j = 0; j < nc; ++j) {
+    int jj = jj0;                          // row jlo + i of the doubled canvas, mod P1
+    for (int i = rows_at_once * warp + sub; i < win.len; i += step) {
+      float* dst = xs + ((size_t)j * cap + i) * 32 + col;
+      const float* row = src + j * plane + (size_t)mirror(jj, d.N) * d.Wep;
+      if (vec)
+        __pipeline_memcpy_async(dst, row, 16);
+      else
+        __pipeline_memcpy_async(dst, row, sizeof(float));
+      jj += step;
+      while (jj >= d.P1) jj -= d.P1;
+    }
+  }
+}
+
+// Pass 1 for one row of the tile in one chunk (lane = column w; wc = w
+// clamped to a live column): y1r[j][w] = sum_k val[k] ((1-f) x[mir(j0), w]
+// + f x[mir(j1), w]), j0 = (l_k + t) mod P1, j1 = (j0 + 1) mod P1, over
+// the row's n taps in ascending order, passed round by shuffles (the
+// first 32 come in (v_lane, m_lane): l, or for kStaged its unwrapped u).
+// kStaged: the sources come from the staged window xs [cc][cap][32]; else
+// from x through L1/L2. Where a tap's first source is the last tap's
+// second, it is taken from registers.
+template <bool kStaged>
+__device__ void pass1_row(const float* __restrict__ xb, size_t plane, const float* xs, int cap,
+                          const int* __restrict__ il, const float* __restrict__ vl, int n,
+                          int v_lane, float m_lane, const Dims& d, int w, int wc, int t, float f,
+                          int base, int lref, int nc, float* y1r, size_t y1_cs) {
+  const int lane = threadIdx.x & 31;
+  const size_t cs = kStaged ? (size_t)cap * 32 : plane;      // channel stride of the source
+  float acc[kMaxCc] = {}, e[kMaxCc] = {};
+  int p1_prev = -1;
+  for (int k0 = 0; k0 < n; k0 += 32) {
+    int vi = v_lane;
+    float mi = m_lane;
+    if (k0 > 0) {
+      vi = k0 + lane < n ? il[k0 + lane] : 0;
+      vi = kStaged ? unwrap(vi, lref, d.P1) : vi;
+      mi = k0 + lane < n ? vl[k0 + lane] : 0.f;
+    }
+    const int kk = min(32, n - k0);
+#pragma unroll 4
+    for (int q = 0; q < kk; ++q) {
+      const int v = __shfl_sync(0xffffffffu, vi, q);
+      const float m = __shfl_sync(0xffffffffu, mi, q);
+      const int p0 = kStaged ? v + base : wrap_up(v + t, d.P1);
+      const int p1 = kStaged ? p0 + 1 : wrap_up(p0 + 1, d.P1);
+      const bool next = p0 == p1_prev;
+      p1_prev = p1;
+      const float* s0 = kStaged ? xs + p0 * 32 + lane : xb + (size_t)mirror(p0, d.N) * d.Wep + wc;
+      const float* s1 = kStaged ? xs + p1 * 32 + lane : xb + (size_t)mirror(p1, d.N) * d.Wep + wc;
+#pragma unroll
+      for (int j = 0; j < kMaxCc; ++j) {
+        if (j < nc) {
+          const float a = next ? e[j] : s0[j * cs];
+          e[j] = s1[j * cs];
+          acc[j] = fmaf(m, (1.f - f) * a + f * e[j], acc[j]);
+        }
+      }
+    }
+  }
+  if (w < d.We) {
+#pragma unroll
+    for (int j = 0; j < kMaxCc; ++j)
+      if (j < nc) y1r[j * y1_cs + w] = acc[j];
+  }
+}
+
+// Both passes for a tile of kFwdRows rows of y1 and all channels (cc a
+// round). grid (ceil(N / kFwdRows), B), 32 * kFwdRows threads. Shared: the
+// y1 tile [cc][kFwdRows][We+1], two staging buffers [cc][cap][32], and the
+// shifts and blends of pass 1 [We] each.
+//   pass 1, a warp per row of the tile (its list's first 32 taps kept in
+//   registers), per chunk of 32 columns: the rows of the doubled canvas
+//   that the tile's taps reach in these columns form one cyclic window
+//   (the tile's taps, unwrapped around one of them, span [lo, hi]; the
+//   chunk's shifts, unwrapped around the first column's, span [dmin,
+//   dmax]). If it fits in cap rows, the block copies it from x into shared
+//   memory with cp.async, each row's 32 columns in one 128-byte load, the
+//   next chunk's while this one is summed, and the gathers read it there
+//   (lane = column: no bank conflicts whatever the shifts); otherwise
+//   (dense M, say) they read x through L1/L2;
+//   pass 2: a warp per output line o, a lane per row of the tile, taps
+//   from row o's list of M2 (the next line's first taps load while this
+//   one sums).
+// Every output element is one thread's sum over its row's ascending list:
+// no atomics.
+__global__ void __launch_bounds__(32 * kFwdRows) twopass_fwd_kernel(
+    const float* __restrict__ x, const int* __restrict__ t1, const float* __restrict__ f1,
+    const int* __restrict__ t2, const float* __restrict__ f2, Lists l1, Lists l2,
+    float* __restrict__ out, Dims d, int cc, int cap) {
+  extern __shared__ float smem[];
+  __shared__ int tile_taps[3];             // first row with taps; lo, hi
+  const int ys = d.We + 1;
+  const size_t buf = (size_t)cc * cap * 32;
+  float* y1 = smem;
+  float* xs = y1 + (size_t)cc * kFwdRows * ys;  // 16-byte aligned: kFwdRows is a multiple of 4
+  int* tw = reinterpret_cast<int*>(xs + 2 * buf);
+  float* fw = reinterpret_cast<float*>(tw + d.We);
+  const bool aligned = d.Wep % 4 == 0 && ((size_t)x & 15) == 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * kFwdRows, b = blockIdx.y;
+  const int rows = min(kFwdRows, d.N - r0);
+  const size_t plane = (size_t)d.N * d.Wep, row0 = (size_t)b * d.N + r0;
+
+  for (int w = threadIdx.x; w < d.We; w += 32 * kFwdRows) {
+    tw[w] = norm_shift(t1[(size_t)b * d.Wep + w], d.P1);
+    fw[w] = f1[(size_t)b * d.Wep + w];
+  }
+  // this warp's row of the tile and its first 32 taps
+  const bool has_row = warp < rows;
+  const size_t row = row0 + min(warp, rows - 1);
+  const int n = has_row ? l1.cnt[row] : 0;
+  const int* il = l1.idx + row * d.P1;
+  const float* vl = l1.val + row * d.P1;
+  const int l_lane = lane < n ? il[lane] : 0;
+  const float m_lane = lane < n ? vl[lane] : 0.f;
+  if (threadIdx.x == 0) {
+    tile_taps[0] = kFwdRows;
+    tile_taps[1] = 0x7fffffff;
+    tile_taps[2] = -0x7fffffff;
+  }
+  __syncthreads();
+  if (lane == 0 && n > 0) atomicMin(&tile_taps[0], warp);
+  __syncthreads();
+  const int lref = tile_taps[0] < rows ? l1.idx[(row0 + tile_taps[0]) * d.P1] : 0;
+  {
+    int lo = 0x7fffffff, hi = -0x7fffffff;
+    for (int k = lane; k < n; k += 32) {
+      const int u = unwrap(k < 32 ? l_lane : il[k], lref, d.P1);
+      lo = min(lo, u);
+      hi = max(hi, u);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    if (lane == 0 && n > 0) {
+      atomicMin(&tile_taps[1], lo);
+      atomicMax(&tile_taps[2], hi);
+    }
+  }
+  __syncthreads();
+  const int lo = tile_taps[1], hi = tile_taps[2];      // lo > hi: the tile has no taps
+  const int u_lane = unwrap(l_lane, lref, d.P1);
+
+  const int r2 = r0 + min(lane, rows - 1);            // pass 2: row r0 + lane
+  const int t2r = norm_shift(t2[(size_t)b * d.N + r2], d.P2);
+  const float f2r = f2[(size_t)b * d.N + r2];
+  const int n_chunks = (d.We + 31) / 32;
+
+  for (int c0 = 0; c0 < d.C; c0 += cc) {
+    const int nc = min(cc, d.C - c0);
+    const float* xb = x + (size_t)(b * d.C + c0) * plane;
+    Window cur = chunk_window(tw, 0, min(lane, d.We - 1), lref, lo, hi, d);
+    if (cur.len <= cap)
+      stage_window(xb, plane, cur, 0, min(lane, d.We - 1), aligned && 32 <= d.Wep, nc,
+                              cap, d, xs);
+    __pipeline_commit();
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      const int w = 32 * ci + lane, wc = min(w, d.We - 1);
+      __pipeline_wait_prior(0);            // this thread's copies of this chunk
+      __syncthreads();                     // everyone's; and the last chunk summed: its buffer is free
+      Window nxt{0, 0, 0};
+      if (ci + 1 < n_chunks) {             // the next chunk's copies fly while this one sums
+        const int w0n = 32 * (ci + 1), wn = min(w + 32, d.We - 1);
+        nxt = chunk_window(tw, w0n, wn, lref, lo, hi, d);
+        if (nxt.len <= cap)
+          stage_window(xb, plane, nxt, w0n, wn, aligned && w0n + 32 <= d.Wep, nc, cap,
+                                  d, xs + ((ci + 1) & 1) * buf);
+        __pipeline_commit();
+      }
+      if (has_row) {
+        float* y1r = y1 + (size_t)warp * ys;
+        if (cur.len <= cap)
+          pass1_row<true>(xb, plane, xs + (ci & 1) * buf, cap, il, vl, n, u_lane, m_lane, d, w,
+                          wc, tw[wc], fw[wc], cur.base, lref, nc, y1r, (size_t)kFwdRows * ys);
+        else
+          pass1_row<false>(xb, plane, xs, cap, il, vl, n, l_lane, m_lane, d, w, wc, tw[wc],
+                           fw[wc], 0, lref, nc, y1r, (size_t)kFwdRows * ys);
+      }
+      cur = nxt;
+    }
+    __syncthreads();
+    // pass 2: out[c0+j][o][r] = sum_k val[k] ((1-f2) y1[r][mir(j0)] + f2 y1[r][mir(j1)])
+    const float* yr = y1 + (size_t)lane * ys;
+    int o_nx = warp;
+    size_t line_nx = (size_t)b * d.out + min(o_nx, d.out - 1);
+    int n_nx = o_nx < d.out ? l2.cnt[line_nx] : 0;
+    int i_nx = lane < d.P2 ? l2.idx[line_nx * d.P2 + lane] : 0;       // past the count: never used
+    float m_nx = lane < d.P2 ? l2.val[line_nx * d.P2 + lane] : 0.f;
+    for (int o = warp; o < d.out; o += kFwdRows) {
+      const int n2 = n_nx, i_first = i_nx;
+      const float m_first = m_nx;
+      const size_t line = line_nx;
+      o_nx = o + kFwdRows;                     // the next line's count and first taps
+      line_nx = (size_t)b * d.out + min(o_nx, d.out - 1);
+      n_nx = o_nx < d.out ? l2.cnt[line_nx] : 0;
+      i_nx = lane < d.P2 ? l2.idx[line_nx * d.P2 + lane] : 0;
+      m_nx = lane < d.P2 ? l2.val[line_nx * d.P2 + lane] : 0.f;
+      const int* il2 = l2.idx + line * d.P2;
+      const float* vl2 = l2.val + line * d.P2;
+      float acc[kMaxCc] = {}, e[kMaxCc] = {};
+      int prev = -2;
+      for (int k0 = 0; k0 < n2; k0 += 32) {
+        const int li = k0 == 0 ? i_first : (k0 + lane < n2 ? il2[k0 + lane] : 0);
+        const float mi = k0 == 0 ? m_first : (k0 + lane < n2 ? vl2[k0 + lane] : 0.f);
+        const int kk = min(32, n2 - k0);
+#pragma unroll 4
+        for (int q = 0; q < kk; ++q) {
+          const int i = __shfl_sync(0xffffffffu, li, q);
+          const float m = __shfl_sync(0xffffffffu, mi, q);
+          const bool next = i == prev + 1;
+          prev = i;
+          const int j0 = wrap_up(i + t2r, d.P2);
+          const int wa = mirror(j0, d.We), wb = mirror(wrap_up(j0 + 1, d.P2), d.We);
+#pragma unroll
+          for (int j = 0; j < kMaxCc; ++j) {
+            if (j < nc) {
+              const float* yj = yr + (size_t)j * kFwdRows * ys;
+              const float a = next ? e[j] : yj[wa];
+              e[j] = yj[wb];
+              acc[j] = fmaf(m, (1.f - f2r) * a + f2r * e[j], acc[j]);
+            }
+          }
+        }
+      }
+      if (lane < rows) {
+#pragma unroll
+        for (int j = 0; j < kMaxCc; ++j)
+          if (j < nc) out[((size_t)(b * d.C + c0 + j) * d.out + o) * d.N + r0 + lane] = acc[j];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// How a forward block uses shared memory: cc channels a round (the y1
+// tile [cc][kFwdRows][We+1]), the shifts and blends [We] each, and two
+// staging buffers of cap rows ([cc][cap][32] each), within the per-block
+// limit less a margin for the kernel's static shared memory (tile_taps).
+// cc = 0 if not even one channel's tile fits.
+struct FwdPlan {
+  int cc, cap;
+  size_t smem;
+};
+
+FwdPlan fwd_plan(const Dims& d) {
+  const size_t budget = kMaxSmem - 64;
+  const size_t tile = sizeof(float) * (size_t)kFwdRows * (d.We + 1), shifts = 8 * (size_t)d.We;
+  FwdPlan p{d.C < kMaxCc ? d.C : kMaxCc, 0, 0};
+  while (p.cc > 0 && p.cc * tile + shifts > budget) --p.cc;
+  if (p.cc == 0) return p;
+  const size_t cap = (budget - p.cc * tile - shifts) / (2 * sizeof(float) * 32 * p.cc);
+  p.cap = (int)(cap < (size_t)2 * d.P1 ? cap : (size_t)2 * d.P1);
+  p.smem = p.cc * tile + shifts + 2 * sizeof(float) * 32 * p.cc * (size_t)p.cap;
+  return p;
 }
 
 // A backward stage's shared memory: the tile [cc][R][kSub], dv
@@ -472,24 +749,36 @@ size_t ada_twopass_smem_bytes(int B, int C, int N, int Wep, int We, int P1, int 
                               int P2p, int out) {
   const Dims d = make_dims(B, C, N, Wep, We, P1, P1p, P2, P2p, out);
   const int cc = bwd_channels(d) > 0 ? bwd_channels(d) : 1;
-  size_t m = fwd_smem(d);
+  size_t m = fwd_plan(d).smem;
   if (bwd_smem(d.P2, d.out, cc) > m) m = bwd_smem(d.P2, d.out, cc);
   if (bwd_smem(d.P1, d.N, cc) > m) m = bwd_smem(d.P1, d.N, cc);
   return m;
 }
 
+// Scratch: the row lists of M1 (rcnt1 [B,N] int32, ridx1 [B,N,P1] int32,
+// rval1 [B,N,P1] f32) and of M2 (rcnt2 [B,out_len], ridx2 and rval2
+// [B,out_len,P2]).
 int ada_twopass_fwd(const void* x, const void* t1, const void* f1, const void* M1,
                     const void* t2, const void* f2, const void* M2, void* out,
-                    int B, int C, int N, int Wep, int We, int P1, int P1p, int P2, int P2p,
-                    int out_len, void* stream) {
+                    void* rcnt1, void* ridx1, void* rval1, void* rcnt2, void* ridx2,
+                    void* rval2, int B, int C, int N, int Wep, int We, int P1, int P1p, int P2,
+                    int P2p, int out_len, void* stream) {
   const Dims d = make_dims(B, C, N, Wep, We, P1, P1p, P2, P2p, out_len);
-  const size_t smem = fwd_smem(d);
-  cudaError_t err = allow_smem(twopass_fwd_kernel, smem);
+  cudaStream_t s = (cudaStream_t)stream;
+  const FwdPlan p = fwd_plan(d);
+  if (p.cc == 0) return (int)cudaErrorInvalidValue;
+  const Lists l1{(int*)rcnt1, (int*)ridx1, (float*)rval1};
+  const Lists l2{(int*)rcnt2, (int*)ridx2, (float*)rval2};
+  const int R = N > out_len ? N : out_len;
+  twopass_row_lists_kernel<<<dim3((R + kWarps - 1) / kWarps, B, 2), kThreads, 0, s>>>(
+      (const float*)M1, (const float*)M2, l1, l2, d);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kTile - 1) / kTile, C, B);
-  twopass_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const int*)t1, (const float*)f1, (const float*)M1, (const int*)t2,
-      (const float*)f2, (const float*)M2, (float*)out, d);
+  err = allow_smem(twopass_fwd_kernel, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  twopass_fwd_kernel<<<dim3((N + kFwdRows - 1) / kFwdRows, B), 32 * kFwdRows, p.smem, s>>>(
+      (const float*)x, (const int*)t1, (const float*)f1, (const int*)t2, (const float*)f2, l1,
+      l2, (float*)out, d, p.cc, p.cap);
   return (int)cudaGetLastError();
 }
 

@@ -111,8 +111,8 @@ def build_train_step(G, D, G_ema, g_opt, d_opt, loss, gp_lambda, do_r1: bool, au
             for e, b in zip(G_ema.buffers(), G.buffers()):
                 e.copy_(b)
         state['step'] += 1
-        metrics = dict(G=torch.nan_to_num(g_loss.detach()),
-                       D=torch.nan_to_num(d_loss.detach()))
+        metrics = dict(g=torch.nan_to_num(g_loss.detach()),
+                       d=torch.nan_to_num(d_loss.detach()))
         if ada_enabled:
             state['ada'] = ada_update_p(state['ada'], real_prob.detach())
             metrics['p'] = state['ada']['p']

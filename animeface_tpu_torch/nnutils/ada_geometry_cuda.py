@@ -40,11 +40,12 @@ and writes its output, 22-23 MB: about 7 us. M is banded (13 taps a row),
 so the work is bound by bytes; the kernels skip the zeros of M (see the
 sources' headers) and the next step is to read only M's band.
 
-The two-pass backward first lists the nonzeros of each column of M1 and M2
-(`twopass_tap_lists_plain` is that list format in plain PyTorch) and then
-sums over the lists only; `twopass_bwd_lists_plain` is the same chain in
-plain PyTorch, in the kernels' order. Both serve the tests and
-`chip_smoke.py`; the wrappers never call them.
+The two-pass forward first lists the nonzeros of each row of M1 and M2
+(`twopass_row_lists_plain` is that list format in plain PyTorch) and then
+sums over the lists only; `twopass_fwd_lists_plain` is the same forward in
+plain PyTorch, in the kernel's order. The backward does the same with the
+columns (`twopass_tap_lists_plain`, `twopass_bwd_lists_plain`). These
+serve the tests and `chip_smoke.py`; the wrappers never call them.
 '''
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ _p, _i = ctypes.c_void_p, ctypes.c_int
 #: takes, and its entry points as (name, pointer args); `<source>_smem_bytes`
 #: takes the dims alone
 _ENTRIES = {
-    'ada_twopass': (10, [('ada_twopass_fwd', 8), ('ada_twopass_bwd', 15)]),
+    'ada_twopass': (10, [('ada_twopass_fwd', 14), ('ada_twopass_bwd', 15)]),
     'ada_linepass': (7, [('ada_linepass_fwd', 5), ('ada_linepass_bwd', 6)]),
 }
 _libs = {}
@@ -128,6 +129,14 @@ def twopass_tap_lists_plain(M, P):
             torch.where(keep, cols.gather(-1, rows), 0.0))
 
 
+def twopass_row_lists_plain(M, P):
+    '''The row lists the forward kernels build from M [B, R, Pp]: for each
+    row r, count [B, R] nonzeros M[b, r, l] among the columns l < P, listed
+    as idx [B, R, P] (int32, columns ascending) and val [B, R, P]; entries
+    at or past the count are 0 here (the kernel leaves them unwritten).'''
+    return twopass_tap_lists_plain(M[:, :, :P].transpose(1, 2), M.shape[1])
+
+
 def _gather_taps(z, count, idx, val):
     '''dv[b, c, l, s] = sum over k < count[b, l], ascending, of
     val[b, l, k] z[b, c, idx[b, l, k], s]: M^T z from M's tap lists.'''
@@ -169,6 +178,17 @@ def twopass_bwd_lists_plain(g, t1, f1, t2, f2, lists1, lists2, P1, P2, We):
     return torch.nn.functional.pad(dx, (0, Wep - We))
 
 
+def twopass_fwd_lists_plain(x, t1, f1, t2, f2, rows1, rows2, P1, P2, We, out_len):
+    '''out [B, C, out_len, N] from x [B, C, N, Wep] and the row lists of M1
+    and M2 ((count, idx, val) each, as `twopass_row_lists_plain` gives
+    them), in the fused kernel's order: pass 1 (each row's taps of the
+    blended, shifted canvas, ascending), then pass 2 (the same along y1's
+    rows with M2).'''
+    N = x.shape[2]
+    y1 = _gather_taps(_shift_blend(x, t1, f1, P1, N), *rows1)[..., :We]
+    return _gather_taps(_shift_blend(y1.transpose(2, 3), t2, f2, P2, We), *rows2)[:, :, :out_len]
+
+
 def _check(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
     B, C, N, Wep = x.shape
     for name, tensor, dtype, shape in (
@@ -199,20 +219,27 @@ def _dims(x, M1, M2, P1, P2, We, out_len):
 
 
 def _launch_fwd(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
+    '''The forward kernels: out, and the row lists they built, (count,
+    idx, val) of M1 and of M2.'''
     global fwd_launches
     lib = _library('ada_twopass')
     dims = _dims(x, M1, M2, P1, P2, We, out_len)
-    out = torch.empty((x.shape[0], x.shape[1], out_len, x.shape[2]),
-                      dtype=torch.float32, device=x.device)
+    B, C, N, _ = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    i32 = dict(dtype=torch.int32, device=x.device)
+    out = torch.empty((B, C, out_len, N), **f32)
+    lists = [(torch.empty((B, R), **i32), torch.empty((B, R, P), **i32),
+              torch.empty((B, R, P), **f32)) for R, P in ((N, P1), (out_len, P2))]
     err = lib.ada_twopass_fwd(
         x.data_ptr(), t1.data_ptr(), f1.data_ptr(), M1.data_ptr(),
-        t2.data_ptr(), f2.data_ptr(), M2.data_ptr(), out.data_ptr(), *dims,
+        t2.data_ptr(), f2.data_ptr(), M2.data_ptr(), out.data_ptr(),
+        *(a.data_ptr() for row_lists in lists for a in row_lists), *dims,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f'ada_twopass_fwd failed: CUDA error {err} '
                            f'(shared memory {lib.ada_twopass_smem_bytes(*dims)} B)')
     fwd_launches += 1
-    return out
+    return out, *lists
 
 
 def _launch_bwd(g, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
@@ -250,7 +277,7 @@ class _TwoPassFused(torch.autograd.Function):
     def forward(ctx, x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
         ctx.save_for_backward(t1, f1, M1, t2, f2, M2)
         ctx.dims = (P1, P2, We, out_len)
-        return _launch_fwd(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len)
+        return _launch_fwd(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len)[0]
 
     @staticmethod
     @torch.autograd.function.once_differentiable

@@ -11,10 +11,14 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      shapes (f32, batch 32): the two-pass warp pair at 256px, the line-pass
      pair at 128px (pass 1 and pass 2); time kernel, plain version and the
      byte/operation bound; check the kernel-path warp against the dense
-     warp at both sizes; hold the two-pass backward's tap lists against
-     `twopass_tap_lists_plain` exactly, check that two backward calls give
-     bitwise-equal dx, and print the backward chain's own time and its
-     parts (list build, stage A, stage B) in ms from torch.profiler;
+     warp at both sizes; hold the two-pass forward's row lists against
+     `twopass_row_lists_plain` exactly, check that two forward calls give
+     bitwise-equal outputs, and print the forward's own time and its parts
+     (list build, fused kernel) in ms from torch.profiler; the same for the
+     backward:
+     its tap lists against `twopass_tap_lists_plain`, dx bitwise
+     repeatable, the chain's own time and its parts (list build, stage A,
+     stage B);
   4. drive the StyleGAN2-ADA 256px training step at full width (bench.py's
      settings, bf16 compute, p starting at 0.2, the default ADA knobs), one
      whole 16-step lazy-regularization cycle, with the two-pass kernels'
@@ -218,9 +222,52 @@ def check_kernels(dev):
     images, G_inv, args = _main_path_warp_inputs(dev)
     held = _hold('twopass', agc.twopass_fused, agc.twopass_fused_plain, args[0], args[1:],
                  seed=1)
+    check_twopass_fwd(args)
     check_twopass_bwd_chain(args)
     return images, G_inv, _pair_entries('ada_twopass', (186, 216), held,
                                         _bound(*_twopass_work(*args)))
+
+
+#: the forward's kernels, by the name the profiler shows, in order
+TWOPASS_FWD_PARTS = (('list build', 'twopass_row_lists_kernel'),
+                     ('fused', 'twopass_fwd_kernel'))
+
+
+def _print_parts(what, parts, rows, calls):
+    '''The device time a call of each part, from the profiler's rows.'''
+    for label, kernel in parts:
+        ms = sum(r[0] for r in rows if kernel in r[2]) / calls if rows else None
+        print(f'{what} part {label} ({kernel}): '
+              + (f'{ms:.4f} ms a call' if ms is not None else 'not measured'))
+
+
+def check_twopass_fwd(args, calls=10):
+    '''The forward at the main path's draws: the row lists it built equal
+    `twopass_row_lists_plain` exactly (counts, columns, values), two calls
+    give bitwise-equal outputs; the forward's mean device time (no
+    autograd), and the device time of each part (list build, fused kernel) over `calls` calls
+    under torch.profiler.'''
+    from animeface_tpu_torch.nnutils import ada_geometry_cuda as agc
+
+    def fwd():
+        return agc._launch_fwd(*args)
+
+    out, *lists = fwd()
+    for name, (count, idx, val), M, P in zip(('M1', 'M2'), lists, (args[3], args[6]),
+                                             (args[7], args[8])):
+        want = agc.twopass_row_lists_plain(M, P)
+        keep = torch.arange(idx.shape[2], device=idx.device) < count[..., None]
+        if not (torch.equal(count, want[0]) and torch.equal(idx[keep], want[1][keep])
+                and torch.equal(val[keep], want[2][keep])):
+            raise AssertionError(f'the row lists of {name} differ from twopass_row_lists_plain')
+        print(f'row lists of {name} {tuple(M.shape)}: {int(count.sum())} taps, at most '
+              f'{int(count.max())} in a row, equal to the plain lists')
+    if not torch.equal(out, fwd()[0]):
+        raise AssertionError('two forward calls on the same inputs gave different outputs')
+    print('ada_twopass_fwd: two calls give bitwise-equal outputs')
+    print(f'ada_twopass_fwd alone (no autograd): {_time_ms(fwd):.4f} ms a call')
+    rows = profile_step(f'{calls} ada_twopass_fwd calls', lambda: [fwd() for _ in range(calls)])
+    _print_parts('ada_twopass_fwd', TWOPASS_FWD_PARTS, rows, calls)
 
 
 #: the backward chain's kernels, by the name the profiler shows, in order
@@ -259,10 +306,7 @@ def check_twopass_bwd_chain(args, calls=10, seed=1):
     print('ada_twopass_bwd: two calls give bitwise-equal dx')
     print(f'ada_twopass_bwd chain alone (no autograd): {_time_ms(bwd):.4f} ms a call')
     rows = profile_step(f'{calls} ada_twopass_bwd calls', lambda: [bwd() for _ in range(calls)])
-    for label, kernel in TWOPASS_BWD_PARTS:
-        ms = sum(r[0] for r in rows if kernel in r[2]) / calls if rows else None
-        print(f'ada_twopass_bwd part {label} ({kernel}): '
-              + (f'{ms:.4f} ms a call' if ms is not None else 'not measured'))
+    _print_parts('ada_twopass_bwd', TWOPASS_BWD_PARTS, rows, calls)
 
 
 def run_main_path(dev, card):
@@ -462,7 +506,7 @@ def run_ada_path(dev, card, **overrides):
     t0 = time.perf_counter()
     for _ in range(ADA_STEPS):
         m = run.train_step(state, real)
-        losses.append((m['G'], m['D']))
+        losses.append((m['g'], m['d']))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = (agc.line_fwd_launches, agc.line_bwd_launches)

@@ -143,8 +143,9 @@ def test_step_matches_jax(setup, monkeypatch, do_r1):
         augment_fn, ada_enabled=True)
     metrics = step(state, _nchw(real), dict(z=z, aug=None))
 
-    _close(metrics['G'], jmetrics['g'], what='G loss')
-    _close(metrics['D'], jmetrics['d'], what='D loss')
+    assert sorted(metrics) == sorted(jmetrics)
+    _close(metrics['g'], jmetrics['g'], what='G loss')
+    _close(metrics['d'], jmetrics['d'], what='D loss')
     new_moments = jax.device_get(jnew['G_moments'])
     for port, grads, params, convert in (
             (G, jnew['g_opt'], jnew['G'], lambda t: convert_stylegan3_generator(t, new_moments)),

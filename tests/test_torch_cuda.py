@@ -119,6 +119,75 @@ def test_twopass_tap_lists_match_plain(cuda, B, C, N, Wep, We, band, slope, wrap
         assert torch.equal(idx[keep], want[1][keep]) and torch.equal(val[keep], want[2][keep])
 
 
+@pytest.mark.parametrize(TWOPASS_PARAMS, TWOPASS_CASES)
+def test_twopass_row_lists_match_plain(cuda, B, C, N, Wep, We, band, slope, wrap):
+    '''The row lists the forward builds equal `twopass_row_lists_plain`
+    exactly: counts, columns and values; M's columns past P are not read.
+    The output is the plain warp's.'''
+    x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len = _cuda_inputs(
+        cuda, B, C, N, Wep, We, band, slope, wrap)
+    ref = agc.twopass_fused_plain(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len)
+    M1[:, :, P1:] = 5.0                       # junk the kernels must not read
+    M2[:, :, P2:] = 5.0
+    out, *lists = agc._launch_fwd(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) < 1e-4 * max(1.0, float(ref.abs().max()))
+    for (count, idx, val), M, P in zip(lists, (M1, M2), (P1, P2)):
+        want = agc.twopass_row_lists_plain(M, P)
+        keep = torch.arange(idx.shape[2], device=cuda) < count[..., None]
+        assert torch.equal(count, want[0])
+        assert torch.equal(idx[keep], want[1][keep]) and torch.equal(val[keep], want[2][keep])
+
+
+def test_twopass_forward_fills_shared_memory(cuda):
+    '''At C=3, N=64, We=112 the forward's plan fills the per-block shared
+    memory (232448 B on sm_90) up to the 64 B it keeps for the kernel's
+    static shared memory; without that margin it would ask for all 232448
+    B and the launch would fail. It launches and matches the plain warp.'''
+    args = _cuda_inputs(cuda, 2, 3, 64, 112, 112, 6.5, (0.7, 1.4), False)
+    dims = agc._dims(args[0], args[3], args[6], *args[7:])
+    smem = agc._library('ada_twopass').ada_twopass_smem_bytes(*dims)
+    assert 232448 - 64 - 2 * 4 * 32 * 3 < smem <= 232448 - 64
+    ref = agc.twopass_fused_plain(*args)
+    out = agc._launch_fwd(*args)[0]
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) < 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def test_warp_at_256px_takes_the_twopass_kernels(cuda):
+    '''A 256px warp of the default pipe's draws passes the two-pass gate:
+    one forward launch (its shifts vary smoothly along the columns, so the
+    forward's pass 1 reads staged windows), and the result matches the
+    dense warp.'''
+    from animeface_tpu_torch.nnutils.ada import make_ada_pipe
+    from animeface_tpu_torch.nnutils.ada_geometry import twopass_warp
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    images = torch.rand((4, 3, 256, 256), generator=gen, device=cuda) * 2 - 1
+    captured = {}
+
+    def capture(x, G_inv):                  # keep the draws, skip the warp
+        captured['G'] = G_inv
+        return x
+
+    pipe = make_ada_pipe()
+    pipe._execute_geometry = capture
+    pipe(images, 1.0, generator=gen)
+    before = (agc.fwd_launches, agc.line_fwd_launches)
+    got = twopass_warp(images, captured['G'])
+    torch.cuda.synchronize()
+    assert (agc.fwd_launches, agc.line_fwd_launches) == (before[0] + 1, before[1])
+    want = twopass_warp(images, captured['G'], fused=False)
+    assert float((got - want).abs().max()) < 1e-4
+
+
+def test_twopass_forward_is_deterministic(cuda):
+    '''Two forward calls on the same inputs give bitwise-equal outputs
+    (gather form, every sum in its list's fixed order).'''
+    args = _cuda_inputs(cuda, *TWOPASS_CASES[2])
+    assert torch.equal(agc.twopass_fused(*args), agc.twopass_fused(*args))
+
+
 def test_twopass_backward_is_deterministic(cuda):
     '''Two backward calls on the same inputs give bitwise-equal dx (gather
     form, every sum in its list's fixed order).'''
