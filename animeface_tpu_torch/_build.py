@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, in `build/` beside this file (listed in
 `.gitignore`), and loaded with `ctypes`. The library's file name carries a
-hash of its source, so an edited source is rebuilt and an unchanged one is
-reused. All sources compile in parallel, one `nvcc` each, at the first call
+hash of its source and of the headers in `csrc/` (`*.cuh`), so an edited
+source or header is rebuilt and an unchanged one is reused. All sources compile in parallel, one `nvcc` each, at the first call
 of `library()` or `build_all()`; nothing is built at import time.
 '''
 
@@ -39,8 +39,14 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD / f'{src.stem}-{digest}.so'
+    '''The library of `src`, named by a hash of the source and of every
+    header beside it (any of them may be included), so that an edited
+    header rebuilds the sources too.'''
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob('*.cuh')):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD / f'{src.stem}-{h.hexdigest()[:12]}.so'
 
 
 def build_all() -> dict[str, str]:

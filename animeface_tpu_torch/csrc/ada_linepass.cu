@@ -25,192 +25,174 @@
 // 3.35 TB/s. M is banded (the kernel K vanishes for |t| >= 6.5: at most 13
 // taps a row, wrapping cyclically), so the arithmetic the data needs is
 // small and the call is bound by bytes. The design never multiplies the
-// zeros of M: each warp compacts one row of M into (index, value) lists in
-// shared memory with a ballot, then sums over those taps only, for every
-// channel and column of its output line. M stays a plain input (any M gives
-// the right answer). What it does not do yet: z is gathered through L1/L2
-// (each element is read by ~13 output lines), and M is read whole, zeros
-// included.
+// zeros of M: it lists M's nonzeros once per call and sums over those taps
+// only, which keeps M a plain input (any M gives the right answer).
 //
-// Backward (the exact transpose; the gradient goes to z only; t, f and M are
-// augment draws) runs in gather form, without atomics:
-//   transpose M -> MT [B,P,out], so that a column of M becomes a row that a
-//   warp can compact;
-//   per (column tile, channel, image): dv = M^T g into shared memory, then
-//   the blend and shift transposes and the mirror fold, which adds the two
-//   doubled rows j and P-j that read input row j:
+// Forward, in two launches, the two-pass forward's pass 1 on one matrix:
+//   row lists: a warp per row of M (compact_row) writes its nonzeros as
+//   (column, value), ascending, and a count: cnt [B,out], idx/val
+//   [B,out,P];
+//   fused (per tile of kFwdRows output lines, all channels): a warp per
+//   line, its first 32 taps in registers; per chunk of 32 columns the
+//   window of z's lines that the tile's taps reach at those columns'
+//   shifts is copied into shared memory with cp.async, double-buffered,
+//   and the gathers read it there with lane = column (read straight from z,
+//   a warp's loads would hit about 12 lines of 128 bytes each, as the
+//   shifts change from column to column); a window too long for the
+//   buffers (dense M) is read from z through L1/L2. The output lines go
+//   straight to memory, coalesced along w.
+// Backward (the exact transpose; the gradient goes to z only; t, f and M
+// are augment draws), in two launches, the two-pass backward's stage B on
+// one matrix:
+//   tap lists: one pass over M, a lane per column l < P, writes each
+//   column's nonzeros as (row, value), ascending, and a count: cnt [B,P],
+//   idx/val [B,P,out];
+//   gather (per tile of kSub columns, all channels): g's tile into shared
+//   memory, dv = M^T g from the lists, then the blend and shift transposes
+//   and the mirror fold onto N lines, which adds the two doubled lines j
+//   and P-j that read input line j:
 //   dz[j,w] = (1-f) dv[(j-t) mod P] + f dv[(j-t-1) mod P]
 //           + [0 < j < N-1] ((1-f) dv[(P-j-t) mod P] + f dv[(P-j-t-1) mod P]).
+// No atomics: every output element is one thread's sum over an ascending
+// list, so two calls give bitwise-equal outputs. The lists, gathers and
+// window staging are in ada_warp_common.cuh, shared with ada_twopass.cu.
 //
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "ada_warp_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;                 // columns per backward block
-constexpr int kTileStride = kTile + 1;    // padded so lanes spread over banks
-constexpr size_t kMaxSmem = 232448;       // per-block dynamic shared memory on sm_90
-constexpr int kChunks = 16;               // 32-wide chunks of a row loaded per round
+using namespace ada_warp;
+
+constexpr int kListThreads = 256;         // the row-list kernel, a warp per row
+constexpr int kListWarps = kListThreads / 32;
 
 struct Dims {
   int B, C, N, W, P, Pp, out;
 };
 
-__device__ __forceinline__ int mirror(int j, int n) { return j < n ? j : 2 * n - 2 - j; }
-
-__device__ __forceinline__ int wrap_up(int j, int p) { return j >= p ? j - p : j; }
-
-__device__ __forceinline__ int wrap_down(int j, int p) { return j < 0 ? j + p : j; }
-
-__device__ __forceinline__ int norm_shift(int t, int p) {
-  t %= p;
-  return t < 0 ? t + p : t;
+// grid (ceil(out / kListWarps), B): the row lists of M.
+__global__ void __launch_bounds__(kListThreads) linepass_row_lists_kernel(
+    const float* __restrict__ M, Lists rl, Dims d) {
+  const int o = blockIdx.x * kListWarps + (threadIdx.x >> 5), b = blockIdx.y;
+  if (o >= d.out) return;                  // the whole warp: compact_row is warp-collective
+  const size_t row = (size_t)b * d.out + o;
+  const int n = compact_row(M + row * d.Pp, d.P, rl.idx + row * d.P, rl.val + row * d.P);
+  if ((threadIdx.x & 31) == 0) rl.cnt[row] = n;
 }
 
-// Warp-collective: write the nonzeros of row[0, len) to (idx, val) in
-// ascending order and return their count. Each round issues the loads of
-// kChunks chunks before the first ballot, so a row of up to 512 entries
-// costs one memory latency instead of one per chunk.
-__device__ int compact_row(const float* __restrict__ row, int len, int* idx, float* val) {
-  const int lane = threadIdx.x & 31;
-  int n = 0;
-  for (int base = 0; base < len; base += 32 * kChunks) {
-    float m[kChunks];
-#pragma unroll
-    for (int k = 0; k < kChunks; ++k) {
-      const int l = base + 32 * k + lane;
-      m[k] = l < len ? __ldg(row + l) : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < kChunks; ++k) {
-      const unsigned nz = __ballot_sync(0xffffffffu, m[k] != 0.f);
-      if (m[k] != 0.f) {
-        const int pos = n + __popc(nz & ((1u << lane) - 1u));
-        idx[pos] = base + 32 * k + lane;
-        val[pos] = m[k];
-      }
-      n += __popc(nz);
-    }
-  }
-  __syncwarp();
-  return n;
-}
-
-// grid (ceil(out / kWarps), B). One warp per output line o; lanes over
-// columns; every channel of the image reuses the warp's tap list.
-// Shared: tap lists, kWarps x P (index, value) pairs.
-__global__ void __launch_bounds__(kThreads) linepass_fwd_kernel(
+// grid (ceil(out / kFwdRows), B), 32 * kFwdRows threads: a tile of output
+// lines over every chunk of 32 columns, so that one chunk's copies fly
+// while the last one is summed. Shared: two staging buffers [cc][cap][32],
+// the shifts and blends [W] each.
+__global__ void __launch_bounds__(32 * kFwdRows) linepass_fwd_kernel(
     const float* __restrict__ z, const int* __restrict__ t, const float* __restrict__ f,
-    const float* __restrict__ M, float* __restrict__ out, Dims d) {
-  extern __shared__ int smem_i[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* idx = smem_i + warp * d.P;
-  float* val = reinterpret_cast<float*>(smem_i + kWarps * d.P) + warp * d.P;
-  const int o = blockIdx.x * kWarps + warp, b = blockIdx.y;
-  if (o >= d.out) return;                 // whole warps only: compact_row is collective
-
-  const int n = compact_row(M + ((size_t)b * d.out + o) * d.Pp, d.P, idx, val);
+    Lists rl, float* __restrict__ out, Dims d, int cc, int cap) {
+  extern __shared__ float smem[];
+  __shared__ int tile_taps[3];             // first line with taps; lo, hi
+  const size_t buf = (size_t)cc * cap * 32;
+  float* xs = smem;
+  int* tw = reinterpret_cast<int*>(xs + 2 * buf);
+  float* fw = reinterpret_cast<float*>(tw + d.W);
+  const bool aligned = d.W % 4 == 0 && ((size_t)z & 15) == 0;
+  const int warp = threadIdx.x >> 5;
+  const int o0 = blockIdx.x * kFwdRows, b = blockIdx.y;
+  const int rows = min(kFwdRows, d.out - o0);
   const size_t plane = (size_t)d.N * d.W;
-  for (int w = lane; w < d.W; w += 32) {
-    const int s = norm_shift(t[(size_t)b * d.W + w], d.P);
-    const float fw = f[(size_t)b * d.W + w];
-    for (int c = 0; c < d.C; ++c) {
-      const float* zc = z + (size_t)(b * d.C + c) * plane + w;
-      float acc = 0.f;
-      for (int k = 0; k < n; ++k) {
-        const int j0 = wrap_up(idx[k] + s, d.P);
-        const int j1 = wrap_up(j0 + 1, d.P);
-        const float a = zc[(size_t)mirror(j0, d.N) * d.W];
-        const float e = zc[(size_t)mirror(j1, d.N) * d.W];
-        acc = fmaf(val[k], (1.f - fw) * a + fw * e, acc);
-      }
-      out[((size_t)(b * d.C + c) * d.out + o) * d.W + w] = acc;
-    }
+
+  for (int w = threadIdx.x; w < d.W; w += 32 * kFwdRows) {
+    tw[w] = norm_shift(t[(size_t)b * d.W + w], d.P);
+    fw[w] = f[(size_t)b * d.W + w];
+  }
+  // this warp's line of the tile, its first 32 taps and the tile's span
+  const TileRow tr = tile_row(rl, (size_t)b * d.out + o0, rows, d.P, tile_taps);
+  const Line ln{d.P, d.N, d.W, d.W};
+  const int o = o0 + min(warp, rows - 1);
+  for (int c0 = 0; c0 < d.C; c0 += cc) {
+    const int nc = min(cc, d.C - c0);
+    float* line = out + ((size_t)(b * d.C + c0) * d.out + o) * d.W;
+    pass1_chunks(z + (size_t)(b * d.C + c0) * plane, plane, xs, buf, cap, tr, tw, fw, ln,
+                 aligned, nc, 0, (d.W + 31) / 32, line, (size_t)d.out * d.W);
+    __syncthreads();                       // the buffers are free for the next channels
   }
 }
 
-// in [B, R, S] (first Cn columns used) -> out [B, Cn, R]. grid (ceil(Cn/32),
-// ceil(R/32), B), block (32, 8).
-__global__ void transpose_kernel(const float* __restrict__ in, float* __restrict__ out,
-                                 int R, int S, int Cn) {
-  __shared__ float tile[32][33];
-  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32, b = blockIdx.z;
-  const float* ib = in + (size_t)b * R * S;
-  float* ob = out + (size_t)b * Cn * R;
-  for (int i = threadIdx.y; i < 32; i += 8) {
-    const int r = r0 + i, col = c0 + threadIdx.x;
-    if (r < R && col < Cn) tile[i][threadIdx.x] = ib[(size_t)r * S + col];
-  }
-  __syncthreads();
-  for (int i = threadIdx.y; i < 32; i += 8) {
-    const int col = c0 + i, r = r0 + threadIdx.x;
-    if (col < Cn && r < R) ob[(size_t)col * R + r] = tile[threadIdx.x][i];
-  }
+// grid (ceil(P / 32), B), block (32, kListGroups): the tap lists of M.
+__global__ void __launch_bounds__(32 * kListGroups) linepass_lists_kernel(
+    const float* __restrict__ M, Lists cl, Dims d) {
+  __shared__ int part[kListGroups][32];
+  column_lists(M, d.out, d.Pp, d.P, cl, blockIdx.y, part);
 }
 
-// grid (ceil(W / kTile), C, B). Shared: dv [P][kTile+1], tap lists
-// (kWarps x out pairs).
-__global__ void __launch_bounds__(kThreads) linepass_bwd_kernel(
+// grid (ceil(W / kSub), B). Shared: g tile [cc][out][kSub], dv
+// [cc][P][kSubStride], the P counts.
+__global__ void __launch_bounds__(kBwdThreads) linepass_bwd_kernel(
     const float* __restrict__ g, const int* __restrict__ t, const float* __restrict__ f,
-    const float* __restrict__ MT, float* __restrict__ dz, Dims d) {
-  extern __shared__ float smem_f[];
-  float* dv = smem_f;
-  int* idx_all = reinterpret_cast<int*>(dv + (size_t)d.P * kTileStride);
-  float* val_all = reinterpret_cast<float*>(idx_all + kWarps * d.out);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* idx = idx_all + warp * d.out;
-  float* val = val_all + warp * d.out;
-
-  const int w = blockIdx.x * kTile + lane, c = blockIdx.y, b = blockIdx.z;
-  const bool live = w < d.W;
-  const float* gc = g + (size_t)(b * d.C + c) * d.out * d.W;
-
-  // dv[l, w] = sum_o M[o, l] g[o, w]: one warp per l, lanes over columns
-  for (int l = warp; l < d.P; l += kWarps) {
-    const int n = compact_row(MT + ((size_t)b * d.P + l) * d.out, d.out, idx, val);
-    float acc = 0.f;
-    if (live)
-      for (int k = 0; k < n; ++k) acc = fmaf(val[k], gc[(size_t)idx[k] * d.W + w], acc);
-    dv[l * kTileStride + lane] = acc;
-    __syncwarp();
-  }
-  __syncthreads();
-  if (!live) return;
-
-  const int s = norm_shift(t[(size_t)b * d.W + w], d.P);
-  const float fw = f[(size_t)b * d.W + w];
-  float* dzc = dz + (size_t)(b * d.C + c) * d.N * d.W + w;
-  for (int j = warp; j < d.N; j += kWarps) {
-    int i0 = wrap_down(j - s, d.P);
-    int i1 = wrap_down(i0 - 1, d.P);
-    float acc = (1.f - fw) * dv[i0 * kTileStride + lane] + fw * dv[i1 * kTileStride + lane];
-    if (j > 0 && j < d.N - 1) {
-      i0 = wrap_down(d.P - j - s, d.P);
-      i1 = wrap_down(i0 - 1, d.P);
-      acc += (1.f - fw) * dv[i0 * kTileStride + lane] + fw * dv[i1 * kTileStride + lane];
+    Lists cl, float* __restrict__ dz, Dims d, int cc) {
+  extern __shared__ float smem[];
+  float* tile = smem;
+  float* dv = tile + cc * d.out * kSub;
+  int* counts = reinterpret_cast<int*>(dv + cc * d.P * kSubStride);
+  const int seg = threadIdx.x / kSub, s = threadIdx.x % kSub;
+  const int w0 = blockIdx.x * kSub, b = blockIdx.y;
+  const int cols = min(kSub, d.W - w0);
+  const int w = w0 + s;
+  const bool live = s < cols;
+  const int tw = live ? norm_shift(t[(size_t)b * d.W + w], d.P) : 0;
+  const float fw = live ? f[(size_t)b * d.W + w] : 0.f;
+  const size_t plane = (size_t)d.out * d.W;
+  load_counts(cl.cnt + (size_t)b * d.P, d.P, counts);
+  for (int c0 = 0; c0 < d.C; c0 += cc) {
+    const int nc = min(cc, d.C - c0);
+    load_tile(g + (size_t)(b * d.C + c0) * plane + w0, plane, d.W, cols, d.out, nc, tile);
+    __syncthreads();
+    // dv[j, l, w] = sum_o M[o, l] g[c0+j, o, w]
+    gather_taps(tile, counts, cl.idx + (size_t)b * d.P * d.out,
+                cl.val + (size_t)b * d.P * d.out, d.P, d.out, nc, dv);
+    __syncthreads();
+    // dz[i, w]: one segment per (channel, line), lanes over the tile's columns
+    if (live) {
+      for (int task = seg; task < nc * d.N; task += kSegs) {
+        const int j = task / d.N, i = task - j * d.N;
+        dz[((size_t)(b * d.C + c0 + j) * d.N + i) * d.W + w] =
+            undouble(dv + j * d.P * kSubStride + s, i, tw, fw, d.P, d.N);
+      }
     }
-    dzc[(size_t)j * d.W] = acc;
+    __syncthreads();
   }
 }
 
-size_t fwd_smem(const Dims& d) {
-  return (sizeof(int) + sizeof(float)) * (size_t)kWarps * d.P;
+// How a forward block uses shared memory: the shifts and blends [W] each
+// and two staging buffers of cap lines for cc channels ([cc][cap][32]
+// each), within the per-block limit less a margin for the kernel's static
+// shared memory (tile_taps). cc = 0 if the shifts leave no room.
+struct FwdPlan {
+  int cc, cap;
+  size_t smem;
+};
+
+FwdPlan fwd_plan(const Dims& d) {
+  const size_t budget = kMaxSmem - 64, shifts = 8 * (size_t)d.W;
+  const size_t line = 2 * sizeof(float) * 32;        // a line in both buffers, one channel
+  FwdPlan p{d.C < kMaxCc ? d.C : kMaxCc, 0, 0};
+  if (shifts + line * p.cc > budget) {
+    p.cc = 0;
+    return p;
+  }
+  const size_t cap = (budget - shifts) / (line * p.cc);
+  p.cap = (int)(cap < (size_t)2 * d.P ? cap : (size_t)2 * d.P);
+  p.smem = shifts + line * p.cc * (size_t)p.cap;
+  return p;
 }
 
-size_t bwd_smem(const Dims& d) {
-  return sizeof(float) * (size_t)d.P * kTileStride +
-         (sizeof(int) + sizeof(float)) * (size_t)kWarps * d.out;
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// Channels a backward block accumulates at once: up to kMaxCc, as many as
+// its shared memory allows; 0 if not even one channel fits.
+int bwd_channels(const Dims& d) {
+  int cc = d.C < kMaxCc ? d.C : kMaxCc;
+  while (cc > 0 && bwd_smem(d.P, d.out, cc) > kMaxSmem) --cc;
+  return cc;
 }
 
 Dims make_dims(int B, int C, int N, int W, int P, int Pp, int out) {
@@ -226,37 +208,52 @@ extern "C" {
 // Largest dynamic shared memory any launch of these shapes needs (bytes).
 size_t ada_linepass_smem_bytes(int B, int C, int N, int W, int P, int Pp, int out_len) {
   const Dims d = make_dims(B, C, N, W, P, Pp, out_len);
-  const size_t a = fwd_smem(d), b = bwd_smem(d);
+  const int cc = bwd_channels(d) > 0 ? bwd_channels(d) : 1;
+  const size_t a = fwd_plan(d).smem, b = bwd_smem(d.P, d.out, cc);
   return a > b ? a : b;
 }
 
+// Scratch: the row lists of M (cnt [B,out_len] int32, idx [B,out_len,P]
+// int32, val [B,out_len,P] f32).
 int ada_linepass_fwd(const void* z, const void* t, const void* f, const void* M, void* out,
-                     int B, int C, int N, int W, int P, int Pp, int out_len, void* stream) {
+                     void* cnt, void* idx, void* val, int B, int C, int N, int W, int P, int Pp,
+                     int out_len, void* stream) {
   const Dims d = make_dims(B, C, N, W, P, Pp, out_len);
-  const size_t smem = fwd_smem(d);
-  cudaError_t err = allow_smem(linepass_fwd_kernel, smem);
+  cudaStream_t s = (cudaStream_t)stream;
+  const FwdPlan p = fwd_plan(d);
+  if (p.cc == 0) return (int)cudaErrorInvalidValue;
+  const Lists rl{(int*)cnt, (int*)idx, (float*)val};
+  linepass_row_lists_kernel<<<dim3((out_len + kListWarps - 1) / kListWarps, B), kListThreads, 0,
+                              s>>>((const float*)M, rl, d);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((out_len + kWarps - 1) / kWarps, B);
-  linepass_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)z, (const int*)t, (const float*)f, (const float*)M, (float*)out, d);
+  err = allow_smem(linepass_fwd_kernel, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  linepass_fwd_kernel<<<dim3((out_len + kFwdRows - 1) / kFwdRows, B), 32 * kFwdRows, p.smem,
+                        s>>>((const float*)z, (const int*)t, (const float*)f, rl, (float*)out, d,
+                             p.cc, p.cap);
   return (int)cudaGetLastError();
 }
 
-// Scratch: MT [B,P,out_len], f32.
+// Scratch: the tap lists of M (cnt [B,P] int32, idx [B,P,out_len] int32,
+// val [B,P,out_len] f32).
 int ada_linepass_bwd(const void* g, const void* t, const void* f, const void* M, void* dz,
-                     void* MT, int B, int C, int N, int W, int P, int Pp, int out_len,
-                     void* stream) {
+                     void* cnt, void* idx, void* val, int B, int C, int N, int W, int P, int Pp,
+                     int out_len, void* stream) {
   const Dims d = make_dims(B, C, N, W, P, Pp, out_len);
   cudaStream_t s = (cudaStream_t)stream;
-  transpose_kernel<<<dim3((P + 31) / 32, (out_len + 31) / 32, B), dim3(32, 8), 0, s>>>(
-      (const float*)M, (float*)MT, out_len, Pp, P);
+  const int cc = bwd_channels(d);
+  if (cc == 0) return (int)cudaErrorInvalidValue;
+  const Lists cl{(int*)cnt, (int*)idx, (float*)val};
+  linepass_lists_kernel<<<dim3((P + 31) / 32, B), dim3(32, kListGroups), 0, s>>>(
+      (const float*)M, cl, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = bwd_smem(d);
+  const size_t smem = bwd_smem(P, out_len, cc);
   err = allow_smem(linepass_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  linepass_bwd_kernel<<<dim3((W + kTile - 1) / kTile, C, B), kThreads, smem, s>>>(
-      (const float*)g, (const int*)t, (const float*)f, (const float*)MT, (float*)dz, d);
+  linepass_bwd_kernel<<<dim3((W + kSub - 1) / kSub, B), kBwdThreads, smem, s>>>(
+      (const float*)g, (const int*)t, (const float*)f, cl, (float*)dz, d, cc);
   return (int)cudaGetLastError();
 }
 

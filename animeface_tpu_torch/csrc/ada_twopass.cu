@@ -72,241 +72,36 @@
 // path's shapes is instruction issue in the gathers (a tap costs two
 // shuffles and a shared-memory load per channel), not bytes.
 //
+// The list builders, the gathers and the window staging are in
+// ada_warp_common.cuh, shared with ada_linepass.cu; pass 2 of the forward
+// and the backward's stage A are this file's own.
+//
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError().
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "ada_warp_common.cuh"
 
 namespace {
 
+using namespace ada_warp;
+
 constexpr int kThreads = 256;             // the forward's row-list kernel
 constexpr int kWarps = kThreads / 32;
-constexpr size_t kMaxSmem = 232448;       // per-block dynamic shared memory on sm_90
 
 struct Dims {
   int B, C, N, Wep, We, P1, P1p, P2, P2p, out;
 };
 
-__device__ __forceinline__ int mirror(int j, int n) { return j < n ? j : 2 * n - 2 - j; }
-
-__device__ __forceinline__ int wrap_up(int j, int p) { return j >= p ? j - p : j; }
-
-__device__ __forceinline__ int wrap_down(int j, int p) { return j < 0 ? j + p : j; }
-
-__device__ __forceinline__ int norm_shift(int t, int p) {
-  t %= p;
-  return t < 0 ? t + p : t;
-}
-
-constexpr int kChunks = 16;               // 32-wide chunks of a row loaded per round
-
-// Warp-collective: write the nonzeros of row[0, len) to (idx, val) in
-// ascending order and return their count. Each round issues the loads of
-// kChunks chunks before the first ballot, so a row of up to 512 entries
-// costs one memory latency instead of one per chunk.
-__device__ int compact_row(const float* __restrict__ row, int len, int* idx, float* val) {
-  const int lane = threadIdx.x & 31;
-  int n = 0;
-  for (int base = 0; base < len; base += 32 * kChunks) {
-    float m[kChunks];
-#pragma unroll
-    for (int k = 0; k < kChunks; ++k) {
-      const int l = base + 32 * k + lane;
-      m[k] = l < len ? __ldg(row + l) : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < kChunks; ++k) {
-      const unsigned nz = __ballot_sync(0xffffffffu, m[k] != 0.f);
-      if (m[k] != 0.f) {
-        const int pos = n + __popc(nz & ((1u << lane) - 1u));
-        idx[pos] = base + 32 * k + lane;
-        val[pos] = m[k];
-      }
-      n += __popc(nz);
-    }
-  }
-  __syncwarp();
-  return n;
-}
-
 // ---------------------------------------------------------------- backward
 
-constexpr int kListGroups = 8;            // row groups per column in the list builder
-constexpr int kBwdThreads = 512;
-constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr int kSub = 8;                   // rows (stage A) or columns (stage B) per block
-constexpr int kSegs = kBwdThreads / kSub; // segments of kSub lanes (the output phases)
-constexpr int kVec = 4;                   // lines a lane sums in the gather (a float4)
-constexpr int kLanes = kSub / kVec;       // lanes a column of M takes in the gather
-constexpr int kStep = 8;                  // taps a column loads at once, kStep / kLanes a lane
-static_assert(kVec == 4 && kSub % kVec == 0 && 32 % kLanes == 0 && kStep % kLanes == 0,
-              "tile shapes");
-constexpr int kSubStride = kSub + 1;      // dv's column stride, odd so lanes spread over banks
-constexpr int kMaxCc = 4;                 // channels accumulated at once
-
-// One list set: column l of image b holds cnt[b*P + l] taps at
-// idx/val[(b*P + l)*R + k], k ascending with the row index.
-struct Lists {
-  int* cnt;
-  int* idx;
-  float* val;
-};
-
 // grid (ceil(max(P1, P2) / 32), B, 2): z = 0 lists M1's columns (R = N
-// rows), z = 1 M2's (R = out). block (32, kListGroups): lane x is column
-// l0 + x, and row group y counts, then writes, the nonzeros of rows
-// [y*span, (y+1)*span) after those of the groups above it. The second
-// read of the rows hits L1 (a block spans 32 columns of R rows).
+// rows), z = 1 M2's (R = out). block (32, kListGroups): `column_lists`.
 __global__ void __launch_bounds__(32 * kListGroups) twopass_lists_kernel(
     const float* __restrict__ M1, const float* __restrict__ M2, Lists l1, Lists l2, Dims d) {
   __shared__ int part[kListGroups][32];
   const bool second = blockIdx.z != 0;
-  const int P = second ? d.P2 : d.P1;
-  if ((int)blockIdx.x * 32 >= P) return;   // the whole block: before any barrier
-  const int R = second ? d.out : d.N;
-  const int Pp = second ? d.P2p : d.P1p;
-  const Lists out = second ? l2 : l1;
-  const int l = blockIdx.x * 32 + threadIdx.x, b = blockIdx.y;
-  const bool live = l < P;
-  const int span = (R + kListGroups - 1) / kListGroups;
-  const int r0 = threadIdx.y * span, r1 = min(R, r0 + span);
-  const float* col = (second ? M2 : M1) + (size_t)b * R * Pp + l;
-
-  int n = 0;
-  if (live) {
-#pragma unroll 8
-    for (int r = r0; r < r1; ++r) n += __ldg(col + (size_t)r * Pp) != 0.f;
-  }
-  part[threadIdx.y][threadIdx.x] = n;
-  __syncthreads();
-  if (!live) return;
-  int k = 0;
-  for (int j = 0; j < (int)threadIdx.y; ++j) k += part[j][threadIdx.x];
-  if (threadIdx.y == kListGroups - 1) out.cnt[(size_t)b * P + l] = k + n;
-  int* idx = out.idx + ((size_t)b * P + l) * R;
-  float* val = out.val + ((size_t)b * P + l) * R;
-  for (int r = r0; r < r1; ++r) {
-    const float m = __ldg(col + (size_t)r * Pp);
-    if (m != 0.f) {
-      idx[k] = r;
-      val[k] = m;
-      ++k;
-    }
-  }
-}
-
-// Copies the tile z_j[r*stride + s], j < cc, r < R, s < kSub (zero for
-// s >= live) of the cc channels of z (channel stride cstride) into
-// tile [cc][R][kSub]: every element of z is read from memory once, and the
-// gather below reads it from shared memory once for each tap of its row.
-// 16-byte loads where the tile is whole and aligned.
-__device__ void load_tile(const float* __restrict__ z, size_t cstride, int stride, int live,
-                          int R, int cc, float* tile) {
-  constexpr int kV = kSub / 4;
-  if (live == kSub && stride % 4 == 0 && cstride % 4 == 0 && ((size_t)z & 15) == 0) {
-    float4* t4 = reinterpret_cast<float4*>(tile);
-    const int n = cc * R * kV;
-#pragma unroll 4
-    for (int e = threadIdx.x; e < n; e += kBwdThreads) {
-      const int v = e % kV, r = (e / kV) % R, j = e / (kV * R);
-      t4[e] = __ldg(reinterpret_cast<const float4*>(z + j * cstride + (size_t)r * stride) + v);
-    }
-    return;
-  }
-  const int n = cc * R * kSub;
-  for (int e = threadIdx.x; e < n; e += kBwdThreads) {
-    const int s = e % kSub, r = (e / kSub) % R, j = e / (kSub * R);
-    tile[e] = s < live ? z[j * cstride + (size_t)r * stride + s] : 0.f;
-  }
-}
-
-// dv[j][l][s] = sum_k val[l,k] tile[j][idx[l,k]][s] for the cc channels j
-// and the tile's lines s, with cnt (the P counts) in shared memory. A warp
-// takes 32 / kLanes neighbouring columns of M at once, kLanes lanes each
-// (a lane sums kVec lines s), and steps through their taps together up to
-// the largest count among them, so that its shuffles never diverge: the
-// lanes of a column load kStep of its taps at once and pass them round by
-// shuffles, and each tap's kVec lines of the tile are one 16-byte load. A
-// tap past a column's count adds nothing.
-__device__ void gather_taps(const float* tile, const int* cnt, const int* __restrict__ idx,
-                            const float* __restrict__ val, int P, int R, int cc, float* dv) {
-  constexpr int kCols = 32 / kLanes, kPerLane = kStep / kLanes;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int seg = lane / kLanes, s = lane % kLanes;
-  const float* ts = tile + kVec * s;
-  for (int l0 = warp * kCols; l0 < P; l0 += kBwdWarps * kCols) {
-    const int l = l0 + seg;
-    const int n = l < P ? cnt[l] : 0;
-    int most = n;
-#pragma unroll
-    for (int o = 16; o >= kLanes; o >>= 1) most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
-    const int* il = idx + (size_t)l * R;
-    const float* vl = val + (size_t)l * R;
-    float4 acc[kMaxCc] = {};
-    for (int k0 = 0; k0 < most; k0 += kStep) {
-      int r[kPerLane];
-      float m[kPerLane];
-#pragma unroll
-      for (int u = 0; u < kPerLane; ++u) {
-        const int k = k0 + u * kLanes + s;
-        r[u] = k < n ? il[k] * kSub : 0;
-        m[u] = k < n ? vl[k] : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < kStep; ++q) {
-        const int rq = __shfl_sync(0xffffffffu, r[q / kLanes], q % kLanes, kLanes);
-        const float mq = __shfl_sync(0xffffffffu, m[q / kLanes], q % kLanes, kLanes);
-        if (k0 + q < n) {
-#pragma unroll
-          for (int j = 0; j < kMaxCc; ++j) {
-            if (j < cc) {
-              const float4 x = *reinterpret_cast<const float4*>(ts + rq + j * R * kSub);
-              acc[j].x = fmaf(mq, x.x, acc[j].x);
-              acc[j].y = fmaf(mq, x.y, acc[j].y);
-              acc[j].z = fmaf(mq, x.z, acc[j].z);
-              acc[j].w = fmaf(mq, x.w, acc[j].w);
-            }
-          }
-        }
-      }
-    }
-    if (l < P) {
-#pragma unroll
-      for (int j = 0; j < kMaxCc; ++j) {
-        if (j < cc) {
-          float* out = dv + (j * P + l) * kSubStride + kVec * s;
-          out[0] = acc[j].x;
-          out[1] = acc[j].y;
-          out[2] = acc[j].z;
-          out[3] = acc[j].w;
-        }
-      }
-    }
-  }
-}
-
-// The P counts of one list set into shared memory.
-__device__ void load_counts(const int* __restrict__ cnt, int P, int* out) {
-  for (int l = threadIdx.x; l < P; l += kBwdThreads) out[l] = cnt[l];
-}
-
-// Transpose of the blend, the shift and the mirror doubling along one
-// line, at output position i < n: dz(m) = (1-f) dv[(m-t) mod P] +
-// f dv[(m-t-1) mod P]; the result is dz(i) + dz(P-i) for 0 < i < n-1,
-// else dz(i). dv points at the line's entry of column 0 (column stride
-// kSubStride).
-__device__ __forceinline__ float undouble(const float* dv, int i, int t, float f, int P, int n) {
-  int i0 = wrap_down(i - t, P);
-  int i1 = wrap_down(i0 - 1, P);
-  float s = (1.f - f) * dv[i0 * kSubStride] + f * dv[i1 * kSubStride];
-  if (i > 0 && i < n - 1) {
-    i0 = wrap_down(P - i - t, P);
-    i1 = wrap_down(i0 - 1, P);
-    s += (1.f - f) * dv[i0 * kSubStride] + f * dv[i1 * kSubStride];
-  }
-  return s;
+  column_lists(second ? M2 : M1, second ? d.out : d.N, second ? d.P2p : d.P1p,
+               second ? d.P2 : d.P1, second ? l2 : l1, blockIdx.y, part);
 }
 
 // Stage A. grid (ceil(N / kSub), B). Shared: g tile [cc][out][kSub], dv2
@@ -386,8 +181,6 @@ __global__ void __launch_bounds__(kBwdThreads) twopass_bwd_cols_kernel(
 
 // ---------------------------------------------------------------- forward
 
-constexpr int kFwdRows = 32;              // rows of y1 a forward block takes, a warp each
-
 // Row lists, the forward's: row r of image b holds cnt[b*R + r] taps at
 // idx/val[(b*R + r)*P + k], k ascending with the column l < P (R = rows
 // of M). grid (ceil(max(N, out) / kWarps), B, 2): z = 0 lists M1's rows,
@@ -404,120 +197,6 @@ __global__ void __launch_bounds__(kThreads) twopass_row_lists_kernel(
   const int n = compact_row((second ? M2 : M1) + row * (second ? d.P2p : d.P1p), P,
                             out.idx + row * P, out.val + row * P);
   if ((threadIdx.x & 31) == 0) out.cnt[row] = n;
-}
-
-// l unwrapped around lref on a cycle of P: lref + u, |u| <= P / 2.
-__device__ __forceinline__ int unwrap(int l, int lref, int P) {
-  const int u = l - lref, half = P / 2;
-  return u > half ? u - P : (u < -half ? u + P : u);
-}
-
-// A chunk's window: the len rows of the doubled canvas from jlo (mod P1)
-// that the tile's taps reach in 32 columns w0 + lane. A tap at column l,
-// unwrapped around lref to lref + u, reads rows u + base and u + base + 1
-// of it (base: the lane's own).
-struct Window {
-  int jlo, len, base;
-};
-
-// Warp-collective. tw: the live columns' shifts t1 mod P1; wc: the lane's
-// column, clamped to a live one; the tile's taps span [lo, hi] around lref.
-__device__ Window chunk_window(const int* tw, int w0, int wc, int lref, int lo, int hi,
-                               const Dims& d) {
-  const int tref = tw[w0];
-  const int dl = unwrap(tw[wc], tref, d.P1);        // the shift around the chunk's first
-  int dmin = dl, dmax = dl;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    dmin = min(dmin, __shfl_xor_sync(0xffffffffu, dmin, off));
-    dmax = max(dmax, __shfl_xor_sync(0xffffffffu, dmax, off));
-  }
-  Window win;
-  win.len = lo <= hi ? hi - lo + dmax - dmin + 2 : 0;
-  win.jlo = lref + lo + tref + dmin;
-  win.base = dl - dmin - lo;
-  return win;
-}
-
-// Starts copying a window of the nc channels of x into xs [cc][cap][32]
-// with cp.async. vec (the chunk's 32 columns lie inside x's rows, 16-byte
-// aligned): a warp copies four 128-byte rows per instruction, 16 bytes a
-// lane; else one row, 4 bytes a lane (columns clamped to live ones).
-__device__ void stage_window(const float* __restrict__ xb, size_t plane, const Window& win,
-                             int w0, int wc, bool vec, int nc, int cap, const Dims& d,
-                             float* xs) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rows_at_once = vec ? 4 : 1;
-  const int sub = vec ? lane >> 3 : 0, col = vec ? 4 * (lane & 7) : lane;
-  const float* src = xb + (vec ? w0 + col : wc);
-  const int step = rows_at_once * kFwdRows;
-  const int jj0 = norm_shift(win.jlo + rows_at_once * warp + sub, d.P1);
-  for (int j = 0; j < nc; ++j) {
-    int jj = jj0;                          // row jlo + i of the doubled canvas, mod P1
-    for (int i = rows_at_once * warp + sub; i < win.len; i += step) {
-      float* dst = xs + ((size_t)j * cap + i) * 32 + col;
-      const float* row = src + j * plane + (size_t)mirror(jj, d.N) * d.Wep;
-      if (vec)
-        __pipeline_memcpy_async(dst, row, 16);
-      else
-        __pipeline_memcpy_async(dst, row, sizeof(float));
-      jj += step;
-      while (jj >= d.P1) jj -= d.P1;
-    }
-  }
-}
-
-// Pass 1 for one row of the tile in one chunk (lane = column w; wc = w
-// clamped to a live column): y1r[j][w] = sum_k val[k] ((1-f) x[mir(j0), w]
-// + f x[mir(j1), w]), j0 = (l_k + t) mod P1, j1 = (j0 + 1) mod P1, over
-// the row's n taps in ascending order, passed round by shuffles (the
-// first 32 come in (v_lane, m_lane): l, or for kStaged its unwrapped u).
-// kStaged: the sources come from the staged window xs [cc][cap][32]; else
-// from x through L1/L2. Where a tap's first source is the last tap's
-// second, it is taken from registers.
-template <bool kStaged>
-__device__ void pass1_row(const float* __restrict__ xb, size_t plane, const float* xs, int cap,
-                          const int* __restrict__ il, const float* __restrict__ vl, int n,
-                          int v_lane, float m_lane, const Dims& d, int w, int wc, int t, float f,
-                          int base, int lref, int nc, float* y1r, size_t y1_cs) {
-  const int lane = threadIdx.x & 31;
-  const size_t cs = kStaged ? (size_t)cap * 32 : plane;      // channel stride of the source
-  float acc[kMaxCc] = {}, e[kMaxCc] = {};
-  int p1_prev = -1;
-  for (int k0 = 0; k0 < n; k0 += 32) {
-    int vi = v_lane;
-    float mi = m_lane;
-    if (k0 > 0) {
-      vi = k0 + lane < n ? il[k0 + lane] : 0;
-      vi = kStaged ? unwrap(vi, lref, d.P1) : vi;
-      mi = k0 + lane < n ? vl[k0 + lane] : 0.f;
-    }
-    const int kk = min(32, n - k0);
-#pragma unroll 4
-    for (int q = 0; q < kk; ++q) {
-      const int v = __shfl_sync(0xffffffffu, vi, q);
-      const float m = __shfl_sync(0xffffffffu, mi, q);
-      const int p0 = kStaged ? v + base : wrap_up(v + t, d.P1);
-      const int p1 = kStaged ? p0 + 1 : wrap_up(p0 + 1, d.P1);
-      const bool next = p0 == p1_prev;
-      p1_prev = p1;
-      const float* s0 = kStaged ? xs + p0 * 32 + lane : xb + (size_t)mirror(p0, d.N) * d.Wep + wc;
-      const float* s1 = kStaged ? xs + p1 * 32 + lane : xb + (size_t)mirror(p1, d.N) * d.Wep + wc;
-#pragma unroll
-      for (int j = 0; j < kMaxCc; ++j) {
-        if (j < nc) {
-          const float a = next ? e[j] : s0[j * cs];
-          e[j] = s1[j * cs];
-          acc[j] = fmaf(m, (1.f - f) * a + f * e[j], acc[j]);
-        }
-      }
-    }
-  }
-  if (w < d.We) {
-#pragma unroll
-    for (int j = 0; j < kMaxCc; ++j)
-      if (j < nc) y1r[j * y1_cs + w] = acc[j];
-  }
 }
 
 // Both passes for a tile of kFwdRows rows of y1 and all channels (cc a
@@ -561,43 +240,9 @@ __global__ void __launch_bounds__(32 * kFwdRows) twopass_fwd_kernel(
     tw[w] = norm_shift(t1[(size_t)b * d.Wep + w], d.P1);
     fw[w] = f1[(size_t)b * d.Wep + w];
   }
-  // this warp's row of the tile and its first 32 taps
-  const bool has_row = warp < rows;
-  const size_t row = row0 + min(warp, rows - 1);
-  const int n = has_row ? l1.cnt[row] : 0;
-  const int* il = l1.idx + row * d.P1;
-  const float* vl = l1.val + row * d.P1;
-  const int l_lane = lane < n ? il[lane] : 0;
-  const float m_lane = lane < n ? vl[lane] : 0.f;
-  if (threadIdx.x == 0) {
-    tile_taps[0] = kFwdRows;
-    tile_taps[1] = 0x7fffffff;
-    tile_taps[2] = -0x7fffffff;
-  }
-  __syncthreads();
-  if (lane == 0 && n > 0) atomicMin(&tile_taps[0], warp);
-  __syncthreads();
-  const int lref = tile_taps[0] < rows ? l1.idx[(row0 + tile_taps[0]) * d.P1] : 0;
-  {
-    int lo = 0x7fffffff, hi = -0x7fffffff;
-    for (int k = lane; k < n; k += 32) {
-      const int u = unwrap(k < 32 ? l_lane : il[k], lref, d.P1);
-      lo = min(lo, u);
-      hi = max(hi, u);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    }
-    if (lane == 0 && n > 0) {
-      atomicMin(&tile_taps[1], lo);
-      atomicMax(&tile_taps[2], hi);
-    }
-  }
-  __syncthreads();
-  const int lo = tile_taps[1], hi = tile_taps[2];      // lo > hi: the tile has no taps
-  const int u_lane = unwrap(l_lane, lref, d.P1);
+  // this warp's row of the tile, its first 32 taps and the tile's span
+  const TileRow tr = tile_row(l1, row0, rows, d.P1, tile_taps);
+  const Line ln{d.P1, d.N, d.Wep, d.We};
 
   const int r2 = r0 + min(lane, rows - 1);            // pass 2: row r0 + lane
   const int t2r = norm_shift(t2[(size_t)b * d.N + r2], d.P2);
@@ -607,35 +252,8 @@ __global__ void __launch_bounds__(32 * kFwdRows) twopass_fwd_kernel(
   for (int c0 = 0; c0 < d.C; c0 += cc) {
     const int nc = min(cc, d.C - c0);
     const float* xb = x + (size_t)(b * d.C + c0) * plane;
-    Window cur = chunk_window(tw, 0, min(lane, d.We - 1), lref, lo, hi, d);
-    if (cur.len <= cap)
-      stage_window(xb, plane, cur, 0, min(lane, d.We - 1), aligned && 32 <= d.Wep, nc,
-                              cap, d, xs);
-    __pipeline_commit();
-    for (int ci = 0; ci < n_chunks; ++ci) {
-      const int w = 32 * ci + lane, wc = min(w, d.We - 1);
-      __pipeline_wait_prior(0);            // this thread's copies of this chunk
-      __syncthreads();                     // everyone's; and the last chunk summed: its buffer is free
-      Window nxt{0, 0, 0};
-      if (ci + 1 < n_chunks) {             // the next chunk's copies fly while this one sums
-        const int w0n = 32 * (ci + 1), wn = min(w + 32, d.We - 1);
-        nxt = chunk_window(tw, w0n, wn, lref, lo, hi, d);
-        if (nxt.len <= cap)
-          stage_window(xb, plane, nxt, w0n, wn, aligned && w0n + 32 <= d.Wep, nc, cap,
-                                  d, xs + ((ci + 1) & 1) * buf);
-        __pipeline_commit();
-      }
-      if (has_row) {
-        float* y1r = y1 + (size_t)warp * ys;
-        if (cur.len <= cap)
-          pass1_row<true>(xb, plane, xs + (ci & 1) * buf, cap, il, vl, n, u_lane, m_lane, d, w,
-                          wc, tw[wc], fw[wc], cur.base, lref, nc, y1r, (size_t)kFwdRows * ys);
-        else
-          pass1_row<false>(xb, plane, xs, cap, il, vl, n, l_lane, m_lane, d, w, wc, tw[wc],
-                           fw[wc], 0, lref, nc, y1r, (size_t)kFwdRows * ys);
-      }
-      cur = nxt;
-    }
+    pass1_chunks(xb, plane, xs, buf, cap, tr, tw, fw, ln, aligned, nc, 0, n_chunks,
+                 y1 + (size_t)warp * ys, (size_t)kFwdRows * ys);
     __syncthreads();
     // pass 2: out[c0+j][o][r] = sum_k val[k] ((1-f2) y1[r][mir(j0)] + f2 y1[r][mir(j1)])
     const float* yr = y1 + (size_t)lane * ys;
@@ -712,12 +330,6 @@ FwdPlan fwd_plan(const Dims& d) {
   return p;
 }
 
-// A backward stage's shared memory: the tile [cc][R][kSub], dv
-// [cc][P][kSubStride] and the P counts.
-size_t bwd_smem(int P, int R, int cc) {
-  return sizeof(float) * ((size_t)cc * ((size_t)R * kSub + (size_t)P * kSubStride) + P);
-}
-
 // Channels a backward block accumulates at once: up to kMaxCc, as many as
 // both stages' shared memory allows; 0 if not even one channel fits.
 int bwd_channels(const Dims& d) {
@@ -725,12 +337,6 @@ int bwd_channels(const Dims& d) {
   while (cc > 0 && (bwd_smem(d.P2, d.out, cc) > kMaxSmem || bwd_smem(d.P1, d.N, cc) > kMaxSmem))
     --cc;
   return cc;
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 Dims make_dims(int B, int C, int N, int Wep, int We, int P1, int P1p, int P2, int P2p, int out) {

@@ -40,12 +40,14 @@ and writes its output, 22-23 MB: about 7 us. M is banded (13 taps a row),
 so the work is bound by bytes; the kernels skip the zeros of M (see the
 sources' headers) and the next step is to read only M's band.
 
-The two-pass forward first lists the nonzeros of each row of M1 and M2
+Both forwards first list the nonzeros of each row of their M
 (`twopass_row_lists_plain` is that list format in plain PyTorch) and then
-sums over the lists only; `twopass_fwd_lists_plain` is the same forward in
-plain PyTorch, in the kernel's order. The backward does the same with the
-columns (`twopass_tap_lists_plain`, `twopass_bwd_lists_plain`). These
-serve the tests and `chip_smoke.py`; the wrappers never call them.
+sum over the lists only; `twopass_fwd_lists_plain` and
+`linepass_fwd_lists_plain` are the same forwards in plain PyTorch, in the
+kernels' order. The backwards do the same with the columns
+(`twopass_tap_lists_plain`, `twopass_bwd_lists_plain`,
+`linepass_bwd_lists_plain`). These serve the tests and `chip_smoke.py`;
+the wrappers never call them.
 '''
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ _p, _i = ctypes.c_void_p, ctypes.c_int
 #: takes the dims alone
 _ENTRIES = {
     'ada_twopass': (10, [('ada_twopass_fwd', 14), ('ada_twopass_bwd', 15)]),
-    'ada_linepass': (7, [('ada_linepass_fwd', 5), ('ada_linepass_bwd', 6)]),
+    'ada_linepass': (7, [('ada_linepass_fwd', 8), ('ada_linepass_bwd', 8)]),
 }
 _libs = {}
 
@@ -218,6 +220,13 @@ def _dims(x, M1, M2, P1, P2, We, out_len):
     return [B, C, N, Wep, We, P1, M1.shape[2], P2, M2.shape[2], out_len]
 
 
+def _lists(B, n, k, device):
+    '''Scratch for one list set: counts [B, n] int32, idx and val [B, n, k].'''
+    return (torch.empty((B, n), dtype=torch.int32, device=device),
+            torch.empty((B, n, k), dtype=torch.int32, device=device),
+            torch.empty((B, n, k), dtype=torch.float32, device=device))
+
+
 def _launch_fwd(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
     '''The forward kernels: out, and the row lists they built, (count,
     idx, val) of M1 and of M2.'''
@@ -225,11 +234,8 @@ def _launch_fwd(x, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
     lib = _library('ada_twopass')
     dims = _dims(x, M1, M2, P1, P2, We, out_len)
     B, C, N, _ = x.shape
-    f32 = dict(dtype=torch.float32, device=x.device)
-    i32 = dict(dtype=torch.int32, device=x.device)
-    out = torch.empty((B, C, out_len, N), **f32)
-    lists = [(torch.empty((B, R), **i32), torch.empty((B, R, P), **i32),
-              torch.empty((B, R, P), **f32)) for R, P in ((N, P1), (out_len, P2))]
+    out = torch.empty((B, C, out_len, N), dtype=torch.float32, device=x.device)
+    lists = [_lists(B, R, P, x.device) for R, P in ((N, P1), (out_len, P2))]
     err = lib.ada_twopass_fwd(
         x.data_ptr(), t1.data_ptr(), f1.data_ptr(), M1.data_ptr(),
         t2.data_ptr(), f2.data_ptr(), M2.data_ptr(), out.data_ptr(),
@@ -252,11 +258,9 @@ def _launch_bwd(g, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len):
     Wep = t1.shape[1]
     dims = [B, C, N, Wep, We, P1, M1.shape[2], P2, M2.shape[2], out_len]
     f32 = dict(dtype=torch.float32, device=g.device)
-    i32 = dict(dtype=torch.int32, device=g.device)
     dx = torch.empty((B, C, N, Wep), **f32)
     dy1 = torch.empty((B, C, N, We), **f32)
-    lists = [(torch.empty((B, P), **i32), torch.empty((B, P, R), **i32),
-              torch.empty((B, P, R), **f32)) for P, R in ((P1, N), (P2, out_len))]
+    lists = [_lists(B, P, R, g.device) for P, R in ((P1, N), (P2, out_len))]
     err = lib.ada_twopass_bwd(
         g.data_ptr(), t1.data_ptr(), f1.data_ptr(), M1.data_ptr(),
         t2.data_ptr(), f2.data_ptr(), M2.data_ptr(), dx.data_ptr(), dy1.data_ptr(),
@@ -312,6 +316,23 @@ def linepass_fused_plain(z, t, f, M):
     return torch.einsum('bol,bclw->bcow', M[:, :, :P], v)
 
 
+def linepass_fwd_lists_plain(z, t, f, rows):
+    '''out [B, C, out, W] from z [B, C, N, W] and the row lists of M
+    ((count, idx, val), as `twopass_row_lists_plain` gives them), in the
+    fused kernel's order: each output line's taps of the blended, shifted
+    lines, ascending.'''
+    N = z.shape[2]
+    return _gather_taps(_shift_blend(z, t, f, 2 * N - 2, N), *rows)
+
+
+def linepass_bwd_lists_plain(g, t, f, cols, N):
+    '''dz [B, C, N, W] from g [B, C, out, W] and the tap lists of M
+    ((count, idx, val), as `twopass_tap_lists_plain` gives them), in the
+    gather kernel's order: M^T g by the lists, then the blend and shift
+    transposes and the mirror undoubling onto N lines.'''
+    return _undouble(_gather_taps(g, *cols), t, f, 2 * N - 2, N)
+
+
 def _check_line(z, t, f, M):
     B, C, N, W = z.shape
     for name, tensor, dtype, shape in (
@@ -337,37 +358,42 @@ def _line_dims(z, M):
 
 
 def _launch_line_fwd(z, t, f, M):
+    '''The forward kernels: out, and the row lists of M they built,
+    (count, idx, val).'''
     global line_fwd_launches
     lib = _library('ada_linepass')
     dims = _line_dims(z, M)
-    B, C, _, W = z.shape
+    B, C, N, W = z.shape
     out = torch.empty((B, C, M.shape[1], W), dtype=torch.float32, device=z.device)
+    rows = _lists(B, M.shape[1], 2 * N - 2, z.device)
     err = lib.ada_linepass_fwd(z.data_ptr(), t.data_ptr(), f.data_ptr(), M.data_ptr(),
-                               out.data_ptr(), *dims,
+                               out.data_ptr(), *(a.data_ptr() for a in rows), *dims,
                                torch.cuda.current_stream(z.device).cuda_stream)
     if err:
         raise RuntimeError(f'ada_linepass_fwd failed: CUDA error {err} '
                            f'(shared memory {lib.ada_linepass_smem_bytes(*dims)} B)')
     line_fwd_launches += 1
-    return out
+    return out, rows
 
 
 def _launch_line_bwd(g, t, f, M, N):
+    '''The backward kernels: dz, and the tap lists of M they built,
+    (count, idx, val).'''
     global line_bwd_launches
     lib = _library('ada_linepass')
     B, C, out_len, W = g.shape
     P = 2 * N - 2
     dims = [B, C, N, W, P, M.shape[2], out_len]
     dz = torch.empty((B, C, N, W), dtype=torch.float32, device=g.device)
-    MT = torch.empty((B, P, out_len), dtype=torch.float32, device=g.device)
+    cols = _lists(B, P, out_len, g.device)
     err = lib.ada_linepass_bwd(g.data_ptr(), t.data_ptr(), f.data_ptr(), M.data_ptr(),
-                               dz.data_ptr(), MT.data_ptr(), *dims,
+                               dz.data_ptr(), *(a.data_ptr() for a in cols), *dims,
                                torch.cuda.current_stream(g.device).cuda_stream)
     if err:
         raise RuntimeError(f'ada_linepass_bwd failed: CUDA error {err} '
                            f'(shared memory {lib.ada_linepass_smem_bytes(*dims)} B)')
     line_bwd_launches += 1
-    return dz
+    return dz, cols
 
 
 class _LinePassFused(torch.autograd.Function):
@@ -377,13 +403,13 @@ class _LinePassFused(torch.autograd.Function):
     def forward(ctx, z, t, f, M):
         ctx.save_for_backward(t, f, M)
         ctx.N = z.shape[2]
-        return _launch_line_fwd(z, t, f, M)
+        return _launch_line_fwd(z, t, f, M)[0]
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         t, f, M = ctx.saved_tensors
-        return _launch_line_bwd(g.contiguous(), t, f, M, ctx.N), None, None, None
+        return _launch_line_bwd(g.contiguous(), t, f, M, ctx.N)[0], None, None, None
 
 
 def linepass_fused(z, t, f, M):

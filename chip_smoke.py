@@ -18,7 +18,10 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      backward:
      its tap lists against `twopass_tap_lists_plain`, dx bitwise
      repeatable, the chain's own time and its parts (list build, stage A,
-     stage B);
+     stage B); likewise the line pair at both 128px passes: the forward's
+     row lists and the backward's tap lists held exactly, both bitwise
+     repeatable, each kernel's device time alone with its parts (list
+     build, fused or gather) and whether back-to-back calls are host-bound;
   4. drive the StyleGAN2-ADA 256px training step at full width (bench.py's
      settings, bf16 compute, p starting at 0.2, the default ADA knobs), one
      whole 16-step lazy-regularization cycle, with the two-pass kernels'
@@ -234,11 +237,16 @@ TWOPASS_FWD_PARTS = (('list build', 'twopass_row_lists_kernel'),
 
 
 def _print_parts(what, parts, rows, calls):
-    '''The device time a call of each part, from the profiler's rows.'''
+    '''The device time a call of each part, from the profiler's rows;
+    returns their sum (None if the profiler recorded no device time).'''
+    total = None
     for label, kernel in parts:
         ms = sum(r[0] for r in rows if kernel in r[2]) / calls if rows else None
         print(f'{what} part {label} ({kernel}): '
               + (f'{ms:.4f} ms a call' if ms is not None else 'not measured'))
+        if ms is not None:
+            total = (total or 0.0) + ms
+    return total
 
 
 def check_twopass_fwd(args, calls=10):
@@ -253,15 +261,9 @@ def check_twopass_fwd(args, calls=10):
         return agc._launch_fwd(*args)
 
     out, *lists = fwd()
-    for name, (count, idx, val), M, P in zip(('M1', 'M2'), lists, (args[3], args[6]),
-                                             (args[7], args[8])):
-        want = agc.twopass_row_lists_plain(M, P)
-        keep = torch.arange(idx.shape[2], device=idx.device) < count[..., None]
-        if not (torch.equal(count, want[0]) and torch.equal(idx[keep], want[1][keep])
-                and torch.equal(val[keep], want[2][keep])):
-            raise AssertionError(f'the row lists of {name} differ from twopass_row_lists_plain')
-        print(f'row lists of {name} {tuple(M.shape)}: {int(count.sum())} taps, at most '
-              f'{int(count.max())} in a row, equal to the plain lists')
+    for name, got, M, P in zip(('M1', 'M2'), lists, (args[3], args[6]), (args[7], args[8])):
+        _hold_lists(f'row lists of {name} {tuple(M.shape)}', got,
+                    agc.twopass_row_lists_plain(M, P))
     if not torch.equal(out, fwd()[0]):
         raise AssertionError('two forward calls on the same inputs gave different outputs')
     print('ada_twopass_fwd: two calls give bitwise-equal outputs')
@@ -292,15 +294,9 @@ def check_twopass_bwd_chain(args, calls=10, seed=1):
         return agc._launch_bwd(g, t1, f1, M1, t2, f2, M2, P1, P2, We, out_len)
 
     dx, *lists = bwd()
-    for name, (count, idx, val), M, P in zip(('M1', 'M2'), lists, (args[3], args[6]),
-                                             (args[7], args[8])):
-        want = agc.twopass_tap_lists_plain(M, P)
-        keep = torch.arange(idx.shape[2], device=idx.device) < count[..., None]
-        if not (torch.equal(count, want[0]) and torch.equal(idx[keep], want[1][keep])
-                and torch.equal(val[keep], want[2][keep])):
-            raise AssertionError(f'the tap lists of {name} differ from twopass_tap_lists_plain')
-        print(f'tap lists of {name} {tuple(M.shape)}: {int(count.sum())} taps, at most '
-              f'{int(count.max())} in a column, equal to the plain lists')
+    for name, got, M, P in zip(('M1', 'M2'), lists, (args[3], args[6]), (args[7], args[8])):
+        _hold_lists(f'tap lists of {name} {tuple(M.shape)}', got,
+                    agc.twopass_tap_lists_plain(M, P))
     if not torch.equal(dx, bwd()[0]):
         raise AssertionError('two backward calls on the same inputs gave different dx')
     print('ada_twopass_bwd: two calls give bitwise-equal dx')
@@ -457,13 +453,16 @@ def _line_pass_inputs(images, G_inv):
 
 def check_line_kernels(dev):
     '''Both line kernels against the plain version at the 128px main path's
-    pass shapes; times and bounds summed over the two passes of one warp.'''
+    pass shapes; times and bounds summed over the two passes of one warp
+    (`alone_ms`: each kernel's device time alone, from `check_line_fwd`
+    and `check_line_bwd`).'''
     from animeface_tpu_torch.nnutils import ada_geometry_cuda as agc
 
     images, G_inv = _warp_draws(dev, ADA_IMAGE, seed=2)
     total = dict.fromkeys(('fwd_err', 'bwd_err', 'fwd', 'fwd_plain', 'bwd', 'bwd_plain'), 0.0)
     bound_ms, bound_by = 0.0, set()
-    for k, (z, t, f, M) in enumerate(_line_pass_inputs(images, G_inv), 1):
+    passes = _line_pass_inputs(images, G_inv)
+    for k, (z, t, f, M) in enumerate(passes, 1):
         held = _hold(f'linepass pass {k}', agc.linepass_fused, agc.linepass_fused_plain,
                      z, (t, f, M), seed=k)
         for key, v in held.items():
@@ -472,7 +471,114 @@ def check_line_kernels(dev):
         bound_ms += ms
         bound_by.add(by)
     bound = (bound_ms, 'bytes' if bound_by == {'bytes'} else 'operations')
-    return images, G_inv, _pair_entries('ada_linepass', (59, 71), total, bound)
+    entries = _pair_entries('ada_linepass', (59, 71), total, bound)
+    for entry, alone in zip(entries, (check_line_fwd(passes), check_line_bwd(passes))):
+        entry['alone_ms'] = sum(alone)
+        print(f'{entry["name"]} alone, both passes: {entry["alone_ms"]:.4f} ms a warp')
+    return images, G_inv, entries
+
+
+#: the line kernels, by the name the profiler shows, in order
+LINE_FWD_PARTS = (('list build', 'linepass_row_lists_kernel'), ('fused', 'linepass_fwd_kernel'))
+LINE_BWD_PARTS = (('list build', 'linepass_lists_kernel'), ('gather', 'linepass_bwd_kernel'))
+
+
+def _time_alone(what, call, parts, calls=10):
+    '''A kernel call alone (no autograd): each part's device time over
+    `calls` calls under torch.profiler, the mean time of back-to-back calls
+    by CUDA events, and the host time it takes to issue one (if that
+    exceeds the device time, back-to-back calls are host-bound and the
+    events time the host). Returns the call's device time: the sum of its
+    parts (the events' time if the profiler recorded none).'''
+    ms = _time_ms(call)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    rows = profile_step(f'{calls} {what} calls', lambda: [call() for _ in range(calls)])
+    device = _print_parts(what, parts, rows, calls)
+    device = ms if device is None else device
+    print(f'{what} alone (no autograd): {device:.4f} ms of device time a call; back to back '
+          f'{ms:.4f} ms a call by events, the host {host_ms:.4f} ms to issue one '
+          f'({"host" if host_ms >= device else "device"}-bound)')
+    return device
+
+
+def _line_grad(z, M, seed):
+    '''A seeded output gradient for one line pass of z with M.'''
+    B, C, _, W = z.shape
+    return torch.randn((B, C, M.shape[1], W), device=z.device,
+                       generator=torch.Generator(device=z.device).manual_seed(seed))
+
+
+def _hold_lists(what, got, want):
+    '''Kernel-built lists (count, idx, val) equal the plain ones exactly
+    (entries past a count are unwritten scratch).'''
+    count, idx, val = got
+    keep = torch.arange(idx.shape[2], device=idx.device) < count[..., None]
+    if not (torch.equal(count, want[0]) and torch.equal(idx[keep], want[1][keep])
+            and torch.equal(val[keep], want[2][keep])):
+        raise AssertionError(f'the {what} differ from the plain lists')
+    print(f'{what}: {int(count.sum())} taps, at most {int(count.max())} in a list, equal to '
+          'the plain lists')
+
+
+def check_line_fwd(passes):
+    '''The line forward at both 128px pass shapes, with the main path's
+    draws: the row lists it built equal `twopass_row_lists_plain` exactly,
+    the output is within TOL of `linepass_fused_plain`, two calls give
+    bitwise-equal outputs; each pass's device time alone and its parts.
+    Returns the device ms of each pass.'''
+    from animeface_tpu_torch.nnutils import ada_geometry_cuda as agc
+
+    times = []
+    for k, (z, t, f, M) in enumerate(passes, 1):
+        def fwd():
+            return agc._launch_line_fwd(z, t, f, M)
+
+        out, lists = fwd()
+        _hold_lists(f'row lists of M, pass {k} {tuple(M.shape)}', lists,
+                    agc.twopass_row_lists_plain(M, 2 * z.shape[2] - 2))
+        err = float((out - agc.linepass_fused_plain(z, t, f, M)).abs().max())
+        if not err <= TOL:
+            raise AssertionError(f'ada_linepass_fwd pass {k}: error {err} past {TOL}')
+        if not torch.equal(out, fwd()[0]):
+            raise AssertionError(f'ada_linepass_fwd pass {k}: two calls differ')
+        print(f'ada_linepass_fwd pass {k}: max_abs_err {err:.3e}, two calls bitwise equal')
+        times.append(_time_alone(f'ada_linepass_fwd pass {k}', fwd, LINE_FWD_PARTS))
+    return times
+
+
+def check_line_bwd(passes):
+    '''The line backward at both 128px pass shapes, with the main path's
+    draws: the tap lists it built equal `twopass_tap_lists_plain` exactly,
+    dz is within TOL of autograd through `linepass_fused_plain`, two calls
+    give bitwise-equal dz; each pass's device time alone and its parts.
+    Returns the device ms of each pass.'''
+    from animeface_tpu_torch.nnutils import ada_geometry_cuda as agc
+
+    times = []
+    for k, (z, t, f, M) in enumerate(passes, 1):
+        N = z.shape[2]
+        g = _line_grad(z, M, seed=k)
+
+        def bwd():
+            return agc._launch_line_bwd(g, t, f, M, N)
+
+        dz, lists = bwd()
+        _hold_lists(f'tap lists of M, pass {k} {tuple(M.shape)}', lists,
+                    agc.twopass_tap_lists_plain(M, 2 * N - 2))
+        zr = z.clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(agc.linepass_fused_plain(zr, t, f, M), zr, g)
+        err = float((dz - want).abs().max())
+        if not err <= TOL:
+            raise AssertionError(f'ada_linepass_bwd pass {k}: error {err} past {TOL}')
+        if not torch.equal(dz, bwd()[0]):
+            raise AssertionError(f'ada_linepass_bwd pass {k}: two calls differ')
+        print(f'ada_linepass_bwd pass {k}: max_abs_err {err:.3e}, two calls bitwise equal')
+        times.append(_time_alone(f'ada_linepass_bwd pass {k}', bwd, LINE_BWD_PARTS))
+    return times
 
 
 def run_ada_path(dev, card, **overrides):

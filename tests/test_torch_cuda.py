@@ -210,9 +210,10 @@ def test_twopass_kernel_rejects_bad_input(cuda):
         agc.twopass_fused(args[0], args[1][:, :8], *args[2:])
 
 
-def _line_inputs(B, C, N, W, out_len, band, seed, Pp=None):
+def _line_inputs(B, C, N, W, out_len, band, seed, Pp=None, smooth=False):
     '''Random line-pass inputs: M banded around a sloped line (as
-    `_pass_params` builds it) or dense (band=None), Pp >= P columns.'''
+    `_pass_params` builds it) or dense (band=None), Pp >= P columns; shifts
+    random per column, or with `smooth` a shear's (as the warp draws them).'''
     rng = np.random.default_rng(seed)
     P = 2 * N - 2
     Pp = Pp or P
@@ -224,16 +225,23 @@ def _line_inputs(B, C, N, W, out_len, band, seed, Pp=None):
         M = np.where(np.abs(d) < band, M, 0.0).astype(np.float32)
     z = rng.standard_normal((B, C, N, W)).astype(np.float32)
     t = rng.integers(0, P, (B, W)).astype(np.int32)
+    if smooth:
+        shear = rng.uniform(-0.6, 0.6, (B, 1)) * (np.arange(W) - (W - 1) / 2)
+        t = np.mod(np.floor(shear), P).astype(np.int32)
     f = rng.uniform(0, 1, (B, W)).astype(np.float32)
     return tuple(torch.from_numpy(a) for a in (z, t, f, M))
 
 
-@pytest.mark.parametrize('B,C,N,W,out_len,band,Pp', [
+LINE_PARAMS = 'B,C,N,W,out_len,band,Pp'
+LINE_CASES = [
     (2, 3, 16, 24, 16, 6.5, 32),      # M padded past P (ignored columns)
     (2, 1, 20, 40, 13, None, None),   # dense M, out_len != N
     (8, 3, 128, 192, 128, 6.5, None),  # 128px pass 1 (P = 254)
     (8, 3, 192, 128, 128, 6.5, None),  # 128px pass 2 (P = 382)
-])
+]
+
+
+@pytest.mark.parametrize(LINE_PARAMS, LINE_CASES)
 def test_linepass_kernels_match_plain(cuda, B, C, N, W, out_len, band, Pp):
     z, t, f, M = (a.to(cuda) for a in _line_inputs(B, C, N, W, out_len, band, N, Pp))
     if Pp:
@@ -253,6 +261,81 @@ def test_linepass_kernels_match_plain(cuda, B, C, N, W, out_len, band, Pp):
     assert float((got - ref).abs().max()) < 1e-4 * scale
     gscale = max(1.0, float(gref.abs().max()))
     assert float((ggot - gref).abs().max()) < 1e-4 * gscale
+
+
+@pytest.mark.parametrize(LINE_PARAMS, LINE_CASES)
+def test_linepass_lists_match_plain(cuda, B, C, N, W, out_len, band, Pp):
+    '''The row lists the forward builds equal `twopass_row_lists_plain`,
+    and the tap lists the backward builds `twopass_tap_lists_plain`,
+    exactly: counts, indices and values; M's columns past P are not read.
+    Output and dz are the list-form plain versions' on those lists.'''
+    z, t, f, M = (a.to(cuda) for a in _line_inputs(B, C, N, W, out_len, band, N, Pp))
+    P = 2 * N - 2
+    if Pp:
+        M[:, :, P:] = 5.0                    # junk the kernels must not read
+    g = torch.randn((B, C, out_len, W), device=cuda)
+    out, rows = agc._launch_line_fwd(z, t, f, M)
+    dz, cols = agc._launch_line_bwd(g, t, f, M, N)
+    torch.cuda.synchronize()
+    want_rows, want_cols = agc.twopass_row_lists_plain(M, P), agc.twopass_tap_lists_plain(M, P)
+    for (count, idx, val), want in ((rows, want_rows), (cols, want_cols)):
+        keep = torch.arange(idx.shape[2], device=cuda) < count[..., None]
+        assert torch.equal(count, want[0])
+        assert torch.equal(idx[keep], want[1][keep]) and torch.equal(val[keep], want[2][keep])
+    ref = agc.linepass_fwd_lists_plain(z, t, f, want_rows)
+    assert float((out - ref).abs().max()) < 1e-4 * max(1.0, float(ref.abs().max()))
+    dref = agc.linepass_bwd_lists_plain(g, t, f, want_cols, N)
+    assert float((dz - dref).abs().max()) < 1e-4 * max(1.0, float(dref.abs().max()))
+
+
+@pytest.mark.parametrize('N,W', [(128, 192), (192, 128)])
+def test_linepass_kernels_are_deterministic(cuda, N, W):
+    '''Two forward and two backward calls on the same inputs (the 128px
+    pass shapes) give bitwise-equal outputs: every sum in its list's fixed
+    order, no atomics.'''
+    z, t, f, M = (a.to(cuda) for a in _line_inputs(8, 3, N, W, 128, 6.5, N, smooth=True))
+    g = torch.randn((8, 3, 128, W), device=cuda)
+    assert torch.equal(agc._launch_line_fwd(z, t, f, M)[0], agc._launch_line_fwd(z, t, f, M)[0])
+    assert torch.equal(agc._launch_line_bwd(g, t, f, M, N)[0],
+                       agc._launch_line_bwd(g, t, f, M, N)[0])
+
+
+def _line_fwd_cap(z, M):
+    '''The lines of z a staging buffer of the line forward holds: its plan
+    (`fwd_plan` in csrc/ada_linepass.cu) is 8 B a column for the shifts and
+    blends, and two buffers of cap lines of 32 columns for C channels.'''
+    dims = agc._line_dims(z, M)
+    smem = agc._library('ada_linepass').ada_linepass_smem_bytes(*dims)
+    return smem, (smem - 8 * z.shape[3]) // (2 * 4 * 32 * z.shape[1])
+
+
+def test_linepass_forward_dense_reads_through_l1(cuda):
+    '''Dense M at the 128px pass-2 shape: a tile's taps span all P = 382
+    columns, so every chunk's window (at least P + 1 lines) outgrows the
+    staging buffers and the forward gathers from z through L1/L2. It
+    matches the plain version.'''
+    z, t, f, M = (a.to(cuda) for a in _line_inputs(2, 3, 192, 128, 128, None, 5))
+    _, cap = _line_fwd_cap(z, M)
+    assert 2 * 192 - 2 + 1 > cap
+    ref = agc.linepass_fused_plain(z, t, f, M)
+    out = agc._launch_line_fwd(z, t, f, M)[0]
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) < 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def test_linepass_forward_fills_shared_memory(cuda):
+    '''At the 128px pass-1 shape the forward's plan fills the per-block
+    shared memory (232448 B on sm_90) up to the 64 B it keeps for the
+    kernel's static shared memory, with buffers of some 300 lines; the
+    shear's windows fit them, so the gathers read the staged windows. It
+    launches and matches the plain version.'''
+    z, t, f, M = (a.to(cuda) for a in _line_inputs(2, 3, 128, 192, 128, 6.5, 6, smooth=True))
+    smem, cap = _line_fwd_cap(z, M)
+    assert 232448 - 64 - 2 * 4 * 32 * 3 < smem <= 232448 - 64 and cap < 2 * 254
+    ref = agc.linepass_fused_plain(z, t, f, M)
+    out = agc._launch_line_fwd(z, t, f, M)[0]
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) < 1e-4 * max(1.0, float(ref.abs().max()))
 
 
 def test_linepass_kernel_rejects_bad_input(cuda):
