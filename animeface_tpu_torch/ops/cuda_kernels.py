@@ -14,6 +14,11 @@ its plain PyTorch version beside it, its scope test and a launch counter:
   inside, one rounding. Scope (`filtered_lrelu_in_scope`), as
   `_flrelu_config`: up = down = 2, 1-D filters, non-negative padding,
   C % 128 == 0, out_h == H and out_h % 8 == 0 (NCHW here, NHWC in JAX).
+  Filters of up to 24 taps run a kernel compiled for their size class
+  (`filtered_lrelu_size_class`), with the taps passed by value as
+  `filtered_lrelu_taps` orders them; longer ones run a loop kernel that
+  reads its taps from memory. `filtered_lrelu_phases_plain` is the
+  templated kernel's polyphase order in plain PyTorch, for the tests.
 
 Both are forward only, as the Pallas kernels are: a CUDA tensor that
 requires grad while grad is enabled raises. A CPU tensor takes the plain
@@ -44,7 +49,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     'bias_act': [('bias_act_fwd', [_p, _p, _p, _ll, _ll, _ll, _i, _i, _f, _f, _f, _p])],
-    'filtered_lrelu': [('filtered_lrelu_fwd', [_p] * 4 + [_i] * 11 + [_f] * 3 + [_p])],
+    'filtered_lrelu': [('filtered_lrelu_fwd', [_p] * 5 + [_i] * 12 + [_f] * 3 + [_p])],
 }
 _libs = {}
 
@@ -174,9 +179,113 @@ def filtered_lrelu_plain(x, fu, fd, b, padding, gain, slope, clamp):
     return upfirdn2d(v, fd, down=2).to(x.dtype)
 
 
+#: the filter lengths a templated kernel is compiled for (`Taps<K>` in
+#: csrc/filtered_lrelu.cu); both filters are zero-padded at their end to K
+FLRELU_SIZE_CLASSES = (12, 24)
+
+
+def filtered_lrelu_size_class(Lu, Ld):
+    '''The K of the templated kernel that takes Lu up and Ld down taps, or
+    None past the largest class (the loop kernel).'''
+    return next((K for K in FLRELU_SIZE_CLASSES if max(Lu, Ld) <= K), None)
+
+
+def _on_host(f):
+    '''f on the host. A filter on the card is read back once and kept on the
+    tensor until it is modified in place (its version changes), so a call
+    does not wait for the card. (Writes through `.data` keep the version.)'''
+    if f.device.type == 'cpu':
+        return f
+    memo = getattr(f, '_flrelu_host_copy', None)
+    if memo is None or memo[0] != f._version:
+        memo = (f._version, f.detach().cpu())
+        f._flrelu_host_copy = memo
+    return memo[1]
+
+
+def filtered_lrelu_taps(fu, fd, px0, py0, K):
+    '''The templated kernel's taps, `struct Taps<K>`: 3K f32 values on the
+    CPU, the up taps split by phase along H (K), then along W (K), then
+    the down taps (K).
+
+    gu = flip(fu) * 2 (the up gain 4, split over the two axes) and
+    gd = flip(fd), each zero-padded at its end to K. Of the zero-inserted
+    input only the taps whose parity matches a y row's meet a sample, so
+    row m (and likewise column n with px0) sums K / 2 taps of its phase:
+        y[m] = sum_{j < K/2} up_h[m % 2][j] * xb[ceil((m - py0) / 2) + j],
+        up_h[r][j] = gu[(py0 - r) % 2 + 2 j],
+    and the down-FIR is out[k] = sum_{a < K} gd[a] * e[2 k + a]. A zero
+    tap appended at the end adds no term.'''
+    Lu, Ld = fu.shape[0], fd.shape[0]
+    if K % 2 or max(Lu, Ld) > K:
+        raise ValueError(f'filtered_lrelu_taps: {Lu} and {Ld} taps for K = {K}')
+    gu = torch.zeros(K + 1)
+    gu[:Lu] = _on_host(fu).float().flip(0) * 2
+    gd = torch.zeros(K)
+    gd[:Ld] = _on_host(fd).float().flip(0)
+    phases = [gu[(p0 - r) % 2::2][:K // 2] for p0 in (py0, px0) for r in (0, 1)]
+    return torch.cat(phases + [gd]).contiguous()
+
+
+def _up_phases(v, up, pad0, n):
+    '''y[m] for m < n along the last axis of v (f32) from the phase taps
+    `up` [2, K/2], the input zero outside v.'''
+    half, L = up.shape[1], v.shape[-1]
+    lo = pad0 // 2                        # -ceil((0 - pad0) / 2)
+    hi = max(0, -(-(n - 1 - pad0) // 2) + half - L)
+    vp = torch.nn.functional.pad(v, (lo, hi))
+    y = v.new_empty(v.shape[:-1] + (n,))
+    for r in (0, 1):
+        count = (n - r + 1) // 2
+        start = lo - (pad0 - r) // 2      # ceil((r - pad0) / 2), in vp
+        acc = torch.zeros_like(vp[..., :count])
+        for j in range(half):
+            acc = acc + up[r, j] * vp[..., start + j:start + j + count]
+        y[..., r::2] = acc
+    return y
+
+
+def _down(v, gd, n):
+    '''out[k] = sum_a gd[a] * v[2 k + a] for k < n along the last axis.'''
+    K = gd.shape[0]
+    vp = torch.nn.functional.pad(v, (0, max(0, 2 * n + K - 2 - v.shape[-1])))
+    acc = torch.zeros_like(vp[..., :n])
+    for a in range(K):
+        acc = acc + gd[a] * vp[..., a:a + 2 * n - 1:2]
+    return acc
+
+
+def filtered_lrelu_phases_plain(x, fu, fd, b, padding, gain, slope, clamp):
+    '''`filtered_lrelu_plain` in the templated kernel's order: taps from
+    `filtered_lrelu_taps` padded to the size class (past 24 taps, to the
+    next even length), then the four separable polyphase stages with no
+    zero insertion (up along H, up along W with the activation, gain and
+    clamp, down along W, down along H) over the 2 * out + K - 2 rows and
+    columns of y the down-FIR reads, in f32, rounded once. For tests.'''
+    px0, px1, py0, py1 = padding
+    N, C, H, W = x.shape
+    Lu, Ld = fu.shape[0], fd.shape[0]
+    K = filtered_lrelu_size_class(Lu, Ld) or max(Lu, Ld) + max(Lu, Ld) % 2
+    taps = filtered_lrelu_taps(fu, fd, px0, py0, K).to(x.device)
+    up_h, up_w = taps[:K].reshape(2, -1), taps[K:2 * K].reshape(2, -1)
+    gd = taps[2 * K:]
+    OH, OW = _out_size(H, py0, py1, Lu, Ld), _out_size(W, px0, px1, Lu, Ld)
+    v = x.float()
+    if b is not None:
+        v = v + b.to(x.dtype).float().reshape(1, -1, 1, 1)
+    v = _up_phases(v.transpose(2, 3), up_h, py0, 2 * OH + K - 2).transpose(2, 3)
+    v = _up_phases(v, up_w, px0, 2 * OW + K - 2)
+    v = torch.where(v >= 0, v, v * slope) * gain
+    if clamp is not None:
+        v = v.clamp(-clamp, clamp)
+    v = _down(v, gd, OW)
+    return _down(v.transpose(2, 3), gd, OH).transpose(2, 3).to(x.dtype)
+
+
 def filtered_lrelu(x, fu, fd, b, padding, gain, slope, clamp):
     '''`filtered_lrelu_plain`; the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor.'''
+    version for a CPU tensor. The templated kernel takes its taps by value,
+    from the filters' host copies (`_on_host`).'''
     global filtered_lrelu_launches
     if x.device.type == 'cpu':
         return filtered_lrelu_plain(x, fu, fd, b, padding, gain, slope, clamp)
@@ -196,12 +305,18 @@ def filtered_lrelu(x, fu, fd, b, padding, gain, slope, clamp):
             raise ValueError(f'filtered_lrelu: bias of shape {tuple(b.shape)} for {C} channels')
         b = b.to(x.dtype).contiguous()
     lib = _library('filtered_lrelu')
-    # convolution orientation (flip), the up gain 4 as 2 per axis
-    taps = torch.cat([fu.float().flip(0) * 2, fd.float().flip(0)]).to(x.device).contiguous()
+    K = filtered_lrelu_size_class(Lu, Ld)
+    if K is None:       # the loop kernel: gu then gd on the card, oriented as in the header
+        taps = torch.cat([fu.float().flip(0) * 2, fd.float().flip(0)]).to(x.device).contiguous()
+        host_taps = None
+    else:               # by value, copied from the host at the launch
+        taps, host_taps = None, filtered_lrelu_taps(fu, fd, px0, py0, K)
     out = torch.empty((N, C, OH, OW), dtype=x.dtype, device=x.device)
     err = lib.filtered_lrelu_fwd(
-        x.data_ptr(), None if b is None else b.data_ptr(), taps.data_ptr(), out.data_ptr(),
-        N, C, H, W, OH, OW, Lu, Ld, px0, py0, _DTYPE_CODE[x.dtype], gain, slope,
+        x.data_ptr(), None if b is None else b.data_ptr(),
+        None if taps is None else taps.data_ptr(),
+        None if host_taps is None else host_taps.data_ptr(), out.data_ptr(),
+        N, C, H, W, OH, OW, Lu, Ld, K or 0, px0, py0, _DTYPE_CODE[x.dtype], gain, slope,
         -1.0 if clamp is None else clamp, _stream(x))
     if err:
         raise RuntimeError(f'filtered_lrelu_fwd failed: CUDA error {err} ({Lu} up and {Ld} '

@@ -42,8 +42,10 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      all nine activations with and without the clamp; filtered_lrelu at the
      StyleGAN3-256 same-resolution layer shapes (B = 16, bf16, 12-tap Hann
      filters, padding 11, clamp 256) and one f32 shape; time each against
-     its plain version and bound; check that both refuse a tensor that
-     requires grad;
+     its plain version and bound, and bias_act's linear gain-1 calls
+     against torch.add; at the four filtered_lrelu shapes, two calls
+     bitwise equal and the kernel's device time alone; check that both
+     refuse a tensor that requires grad;
   7. drive the op-level filtered_lrelu (impl='cuda', memory='store') once at
      each of the four shapes: 4 kernel launches;
   8. drive CIPS sampling at the recipe's 128px defaults, nothing cut
@@ -728,7 +730,7 @@ def check_bias_act_kernel(dev):
     from animeface_tpu_torch.ops import cuda_kernels as ck
 
     g = torch.Generator(device=dev).manual_seed(4)
-    err = ms = plain_ms = bound_ms = 0.0
+    err = ms = plain_ms = bound_ms = linear_ms = linear_lib_ms = 0.0
     for shape, dtype, act, gain, calls in CIPS_BIAS_ACT_CALLS:
         x = torch.randn(shape, generator=g, device=dev).to(dtype)
         b = torch.randn(shape[-1], generator=g, device=dev).to(dtype)
@@ -738,6 +740,10 @@ def check_bias_act_kernel(dev):
         print(f'  x{calls} a forward; bound {bound:.4f} ms')
         err, ms, plain_ms = max(err, e), ms + calls * t, plain_ms + calls * tp
         bound_ms += calls * bound
+        if act == 'linear' and gain == 1:       # one library call computes these
+            lib_t = _time_ms(lambda: torch.add(x, b))
+            print(f'  torch.add(x, b) {lib_t:.4f} ms')
+            linear_ms, linear_lib_ms = linear_ms + calls * t, linear_lib_ms + calls * lib_t
     x = torch.randn((64, 256), generator=g, device=dev) * 3
     b = torch.randn(256, generator=g, device=dev)
     for act in sorted(ck.ACT_INDEX):
@@ -751,10 +757,15 @@ def check_bias_act_kernel(dev):
     print(f'bias_act: 9 activations x clamp on/off at (64, 256) f32 agree within {TOL}')
     print(f'bias_act, one CIPS forward (41 calls): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
           f'bound {bound_ms:.4f} ms (bytes)')
+    print(f'bias_act, the forward\'s 22 linear gain-1 calls: kernel {linear_ms:.4f} ms, '
+          f'torch.add {linear_lib_ms:.4f} ms')
+    # no one library call computes the lrelu calls, so library_ms stays null;
+    # the linear calls' times are their own keys
     return dict(name='bias_act', route='cuda', source='animeface_tpu_torch/csrc/bias_act.cu',
                 replaces='animeface_tpu/ops/pallas_kernels.py:815', launches=None,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by='bytes', library_ms=None)
+                bound_by='bytes', library_ms=None, linear_ms=linear_ms,
+                linear_library_ms=linear_lib_ms)
 
 
 def _flrelu_work(x, Lu, Ld, pad):
@@ -788,14 +799,21 @@ def _flrelu_inputs(dev):
     return out
 
 
+#: the filtered_lrelu kernel, by the name the profiler shows (the templated
+#: kernel; the loop kernel for filters past 24 taps is named apart)
+FLRELU_PARTS = (('kernel', 'filtered_lrelu_kernel'),)
+
+
 def check_filtered_lrelu_kernel(dev, fu):
     '''filtered_lrelu against its plain version at the four path shapes and
-    one f32 shape. Returns the kernels-line entry without launches; ms,
-    plain_ms and bound_ms sum the four path shapes (one call each).'''
+    one f32 shape; at each path shape two calls are bitwise equal, and the
+    kernel's device time alone. Returns the kernels-line entry without
+    launches; ms, plain_ms, bound_ms and alone_ms sum the four path shapes
+    (one call each).'''
     from animeface_tpu_torch.ops import cuda_kernels as ck
 
     pad = (FLRELU_PAD,) * 4
-    err = ms = plain_ms = bound_ms = 0.0
+    err = ms = plain_ms = bound_ms = alone_ms = 0.0
     bound_by = set()
     for k, (label, x, b) in enumerate(_flrelu_inputs(dev)):
         args = (x, fu, fu, b, pad, float(np.sqrt(2)), 0.2, FLRELU_CLAMP)
@@ -804,17 +822,21 @@ def check_filtered_lrelu_kernel(dev, fu):
         bound, by = _bound(*_flrelu_work(x, fu.numel(), fu.numel(), FLRELU_PAD))
         print(f'  bound {bound:.4f} ms ({by})')
         if k < len(FLRELU_LAYERS):
+            if not torch.equal(ck.filtered_lrelu(*args), ck.filtered_lrelu(*args)):
+                raise AssertionError(f'{label}: two calls on the same inputs differ')
+            print(f'{label}: two calls bitwise equal')
+            alone_ms += _time_alone(label, lambda: ck.filtered_lrelu(*args), FLRELU_PARTS)
             ms, plain_ms, bound_ms = ms + t, plain_ms + tp, bound_ms + bound
             bound_by.add(by)
         torch.cuda.empty_cache()
-    print(f'filtered_lrelu, the four path shapes: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-          f'bound {bound_ms:.4f} ms')
+    print(f'filtered_lrelu, the four path shapes: kernel {ms:.4f} ms ({alone_ms:.4f} ms of '
+          f'device time alone), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms')
     return dict(name='filtered_lrelu', route='cuda',
                 source='animeface_tpu_torch/csrc/filtered_lrelu.cu',
                 replaces='animeface_tpu/ops/pallas_kernels.py:565', launches=None,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by='operations' if 'operations' in bound_by else 'bytes',
-                library_ms=None)
+                library_ms=None, alone_ms=alone_ms)
 
 
 def check_grad_refused(dev, fu):

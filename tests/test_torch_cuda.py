@@ -413,14 +413,9 @@ def test_bias_act_kernel_matches_plain(cuda, shape, dim, dtype):
 HANN = ops.setup_filter(np.hanning(12))
 
 
-@pytest.mark.parametrize('shape,taps,padding,dtype,clamp,bias', [
-    ((2, 128, 16, 16), (12, 12), (11, 11, 11, 11), torch.float32, 256.0, True),
-    ((2, 128, 64, 64), (12, 12), (11, 11, 11, 11), torch.bfloat16, 256.0, True),
-    ((1, 128, 40, 40), (12, 12), (11, 11, 11, 11), torch.float32, None, False),
-    ((1, 128, 16, 24), (12, 8), (9, 8, 10, 8), torch.float32, 0.8, True),   # asymmetric
-    ((1, 128, 24, 24), (24, 24), (23, 22, 23, 22), torch.float32, None, True),  # > 48 KB smem
-])
-def test_filtered_lrelu_kernel_matches_plain(cuda, shape, taps, padding, dtype, clamp, bias):
+def _flrelu_case(cuda, shape, taps, dtype, bias):
+    '''x, fu, fd and b on the card: the 12-tap Hann filter for (12, 12),
+    else asymmetric seeded filters of the given lengths.'''
     gen = torch.Generator(device=cuda).manual_seed(shape[2])
     if taps == (12, 12):
         fu = fd = HANN.to(cuda)
@@ -430,6 +425,25 @@ def test_filtered_lrelu_kernel_matches_plain(cuda, shape, taps, padding, dtype, 
                   for f in (rng.uniform(0.1, 1, taps[0]), rng.uniform(0.1, 1, taps[1])))
     x = (torch.randn(shape, generator=gen, device=cuda) * 2).to(dtype)
     b = torch.randn(shape[1], generator=gen, device=cuda) * 0.3 if bias else None
+    return x, fu, fd, b
+
+
+@pytest.mark.parametrize('shape,taps,padding,dtype,clamp,bias', [
+    ((2, 128, 16, 16), (12, 12), (11, 11, 11, 11), torch.float32, 256.0, True),
+    ((2, 128, 64, 64), (12, 12), (11, 11, 11, 11), torch.bfloat16, 256.0, True),
+    ((1, 128, 40, 40), (12, 12), (11, 11, 11, 11), torch.float32, None, False),
+    ((1, 128, 16, 24), (12, 8), (9, 8, 10, 8), torch.float32, 0.8, True),   # asymmetric
+    ((1, 128, 24, 24), (24, 24), (23, 22, 23, 22), torch.float32, None, True),  # > 48 KB smem
+    # the 12-tap class at each parity of (px0, py0): the phases' windows
+    ((1, 128, 16, 40), (12, 12), (10, 11, 11, 11), torch.float32, 0.8, True),   # even px0
+    ((1, 128, 40, 16), (12, 12), (11, 12, 10, 12), torch.float32, None, True),  # even py0
+    ((2, 128, 24, 24), (12, 12), (10, 13, 10, 11), torch.float32, 0.8, False),  # both even
+    ((1, 128, 32, 48), (12, 8), (9, 8, 9, 8), torch.float32, None, True),       # Ld < K, odd
+    ((1, 128, 24, 24), (26, 26), (25, 24, 25, 24), torch.float32, 0.8, True),   # loop kernel
+    ((1, 128, 272, 272), (12, 12), (11, 11, 11, 11), torch.bfloat16, 256.0, True),  # the path's
+])
+def test_filtered_lrelu_kernel_matches_plain(cuda, shape, taps, padding, dtype, clamp, bias):
+    x, fu, fd, b = _flrelu_case(cuda, shape, taps, dtype, bias)
     want = ck.filtered_lrelu_plain(x, fu, fd, b, padding, 1.4142135, 0.2, clamp)
     before = ck.filtered_lrelu_launches
     got = ck.filtered_lrelu(x, fu, fd, b, padding, 1.4142135, 0.2, clamp)
@@ -437,6 +451,39 @@ def test_filtered_lrelu_kernel_matches_plain(cuda, shape, taps, padding, dtype, 
     assert ck.filtered_lrelu_launches == before + 1
     assert got.shape == want.shape and got.dtype == dtype
     assert _err_ok(got, want)
+
+
+@pytest.mark.parametrize('shape,taps,padding,clamp', [
+    ((2, 128, 40, 40), (12, 12), (11, 11, 11, 11), 256.0),
+    ((1, 128, 16, 40), (12, 12), (10, 11, 11, 11), 0.8),
+    ((1, 128, 40, 16), (12, 12), (11, 12, 10, 12), None),
+    ((2, 128, 24, 24), (12, 12), (10, 13, 10, 11), 0.8),
+    ((1, 128, 16, 24), (12, 8), (9, 8, 10, 8), 0.8),
+    ((1, 128, 24, 24), (24, 24), (22, 23, 23, 22), None),
+    ((1, 128, 24, 24), (26, 26), (25, 24, 25, 24), 0.8),
+])
+def test_filtered_lrelu_kernel_matches_phases_plain(cuda, shape, taps, padding, clamp):
+    '''The kernel against `filtered_lrelu_phases_plain`, its own order of
+    taps and stages, in f32 (1e-4 abs); two calls give bitwise-equal
+    outputs (no atomics, a fixed order of sums).'''
+    x, fu, fd, b = _flrelu_case(cuda, shape, taps, torch.float32, True)
+    want = ck.filtered_lrelu_phases_plain(x, fu, fd, b, padding, 1.4142135, 0.2, clamp)
+    got = ck.filtered_lrelu(x, fu, fd, b, padding, 1.4142135, 0.2, clamp)
+    again = ck.filtered_lrelu(x, fu, fd, b, padding, 1.4142135, 0.2, clamp)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert _err_ok(got, want)
+    assert torch.equal(got, again)
+
+
+def test_filtered_lrelu_kernel_repeatable_at_path_shape(cuda):
+    '''Two calls at the path's geometry (272^2, bf16, padding 11, clamp
+    256) give bitwise-equal outputs.'''
+    x, fu, fd, b = _flrelu_case(cuda, (2, 128, 272, 272), (12, 12), torch.bfloat16, True)
+    args = (x, fu, fd, b, (11,) * 4, 1.4142135, 0.2, 256.0)
+    got, again = ck.filtered_lrelu(*args), ck.filtered_lrelu(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
 
 
 def test_ops_dispatch_by_scope_on_cuda(cuda):

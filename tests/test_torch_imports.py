@@ -19,7 +19,7 @@ mods = [m.name for m in pkgutil.walk_packages(animeface_tpu_torch.__path__,
                                               'animeface_tpu_torch.')]
 for name in mods:
     importlib.import_module(name)
-import chip_smoke
+import chip_smoke, time_line_kernels, time_flrelu_kernel
 print(' '.join(mods))
 '''
 
