@@ -52,7 +52,8 @@ class ModulatedFC(nn.Module):
 
 
 class StyleLayer(nn.Module):
-    '''ModulatedFC -> bias_act(lrelu) along the channel axis.'''
+    '''ModulatedFC -> bias_act(lrelu) along the channel axis. The f32 bias
+    goes in as it is: both implementations round it to x's dtype.'''
 
     def __init__(self, in_features, style_dim, features, dtype=torch.float32, generator=None):
         super().__init__()
@@ -62,7 +63,7 @@ class StyleLayer(nn.Module):
 
     def forward(self, x, style):
         x = self.fc(x, style)
-        return bias_act(x, self.bias.to(x.dtype), dim=-1, act='lrelu')
+        return bias_act(x, self.bias, dim=-1, act='lrelu')
 
 
 class SynthesisInput(nn.Module):

@@ -1,7 +1,8 @@
 '''bias_act — bias add, activation, gain and clamp.
 
 Counterpart of `animeface_tpu/ops/bias_act.py`: its `activation_funcs`
-table, and `bias_act` with the ops registry's two implementations
+table (kept in `ops/activations.py`, which the kernel's plain version reads
+too), and `bias_act` with the ops registry's two implementations
 (`ops/registry.py`). 'torch' (the default) is the plain composition in x's
 dtype, the JAX package's 'xla' path. 'cuda' sends the calls in the kernel's
 scope (a bias on the channel axis, C % 128 == 0, numel / C a multiple of 8)
@@ -11,39 +12,16 @@ rounding; forward only), as the JAX package's 'pallas' sends them to
 
 The bias runs along `dim`, by default axis 1: the NCHW channel axis, and the
 feature axis of a [batch, features] input (the JAX package defaults to -1,
-its NHWC channel axis; CIPS's [B, S^2, C] passes dim=-1).
+its NHWC channel axis; CIPS's [B, S^2, C] passes dim=-1). Both
+implementations round the bias to x's dtype before the add, so a caller
+may pass an f32 bias with a bf16 x.
 '''
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
-
-import numpy as np
-import torch
-import torch.nn.functional as F
-
+from animeface_tpu_torch.ops import cuda_kernels
+from animeface_tpu_torch.ops.activations import activation_funcs
 from animeface_tpu_torch.ops.registry import resolve_impl
-
-
-class Activation(NamedTuple):
-    func: Callable
-    def_alpha: float
-    def_gain: float
-
-
-_SQRT2 = float(np.sqrt(2))
-
-activation_funcs = {
-    'linear':   Activation(lambda x, **_: x, 0.0, 1.0),
-    'relu':     Activation(lambda x, **_: F.relu(x), 0.0, _SQRT2),
-    'lrelu':    Activation(lambda x, alpha, **_: F.leaky_relu(x, alpha), 0.2, _SQRT2),
-    'tanh':     Activation(lambda x, **_: torch.tanh(x), 0.0, 1.0),
-    'sigmoid':  Activation(lambda x, **_: torch.sigmoid(x), 0.0, 1.0),
-    'elu':      Activation(lambda x, **_: F.elu(x), 0.0, 1.0),
-    'selu':     Activation(lambda x, **_: F.selu(x), 0.0, 1.0),
-    'softplus': Activation(lambda x, **_: F.softplus(x), 0.0, 1.0),
-    'swish':    Activation(lambda x, **_: F.silu(x), 0.0, _SQRT2),
-}
 
 
 def bias_act(x, b=None, dim: int = 1, act: str = 'linear', alpha=None, gain=None,
@@ -55,11 +33,9 @@ def bias_act(x, b=None, dim: int = 1, act: str = 'linear', alpha=None, gain=None
     spec = activation_funcs[act]
     alpha = float(alpha if alpha is not None else spec.def_alpha)
     gain = float(gain if gain is not None else spec.def_gain)
-    if resolve_impl(impl) == 'cuda':
-        from animeface_tpu_torch.ops import cuda_kernels
-        if cuda_kernels.bias_act_in_scope(x.shape, b, dim):
-            return cuda_kernels.bias_act(x, b, dim, act, alpha, gain,
-                                         -1.0 if clamp is None else float(clamp))
+    if resolve_impl(impl) == 'cuda' and cuda_kernels.bias_act_in_scope(x.shape, b, dim):
+        return cuda_kernels.bias_act(x, b, dim, act, alpha, gain,
+                                     -1.0 if clamp is None else float(clamp))
     if b is not None:
         axis = dim % x.ndim
         assert b.ndim == 1 and b.shape[0] == x.shape[axis]

@@ -6,7 +6,12 @@ its plain PyTorch version beside it, its scope test and a launch counter:
 * `bias_act` (`csrc/bias_act.cu`) replaces `bias_act_pallas`
   (`_bias_act_kernel`): bias, activation, gain and clamp in f32, rounded
   once to x's dtype. Scope (`bias_act_in_scope`), as in the JAX package: a
-  bias on the channel axis, C % 128 == 0, numel / C a multiple of 8.
+  bias on the channel axis, C % 128 == 0, numel / C a multiple of 8. The
+  bias may be f32 with a bf16 x: kernel and plain version round it to x's
+  dtype first. The layout and grid come from `bias_act_layout`; the
+  wrapper keeps each call signature's parameter block, so a repeated call
+  costs a dictionary lookup, an allocation and one five-argument ctypes
+  call on the host.
 * `filtered_lrelu` (`csrc/filtered_lrelu.cu`) replaces the three variants
   of `filtered_lrelu_pallas` (`_flrelu_kernel`, `_flrelu_kernel_gather`,
   `_flrelu_kernel_shift`) with one kernel: bias, 2x up-FIR, leaky ReLU x
@@ -23,17 +28,19 @@ its plain PyTorch version beside it, its scope test and a launch counter:
 Both are forward only, as the Pallas kernels are: a CUDA tensor that
 requires grad while grad is enabled raises. A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises, and never falls back.
-The bias arrives in x's dtype, as the Pallas entry points cast it.
+`filtered_lrelu`'s bias arrives in x's dtype, as the Pallas entry points
+cast it.
 '''
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from animeface_tpu_torch.ops.bias_act import activation_funcs
+from animeface_tpu_torch.ops.activations import activation_funcs
 from animeface_tpu_torch.ops.upfirdn2d import upfirdn2d
 
 #: launches of each kernel, counted by the wrappers below (a run can show
@@ -48,7 +55,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    'bias_act': [('bias_act_fwd', [_p, _p, _p, _ll, _ll, _ll, _i, _i, _f, _f, _f, _p])],
+    'bias_act': [('bias_act_fwd', [_p] * 5)],
     'filtered_lrelu': [('filtered_lrelu_fwd', [_p] * 5 + [_i] * 12 + [_f] * 3 + [_p])],
 }
 _libs = {}
@@ -67,13 +74,16 @@ def _library(source):
     return lib
 
 
+_FORWARD_ONLY = ("{}: the CUDA kernel is forward only (as the JAX package's Pallas kernel); "
+                 "run it under torch.no_grad() or use impl='torch'")
+
+
 def _check_cuda(name, x, *others):
-    '''What every kernel wrapper refuses on a CUDA tensor: no backward
-    exists, the kernels take f32 and bf16 contiguous tensors on x's card.'''
+    '''What a kernel wrapper refuses on a CUDA tensor: no backward exists,
+    the kernels take f32 and bf16 contiguous tensors on x's card.'''
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (x, *others)):
-        raise RuntimeError(f'{name}: the CUDA kernel is forward only (as the JAX package\'s '
-                           "Pallas kernel); run it under torch.no_grad() or use impl='torch'")
+        raise RuntimeError(_FORWARD_ONLY.format(name))
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f'{name}: x must be float32 or bfloat16, got {x.dtype}')
     if not x.is_contiguous():
@@ -95,9 +105,107 @@ def bias_act_in_scope(x_shape, b, dim) -> bool:
     if b is None or b.ndim != 1:
         return False
     C = x_shape[dim % len(x_shape)]
-    if C % 128 != 0 or b.shape[0] != C:
-        return False
-    return (int(np.prod(x_shape)) // C) % 8 == 0
+    return C > 0 and C % 128 == 0 and b.shape[0] == C and math.prod(x_shape) // C % 8 == 0
+
+
+#: threads a block at most (kThreads in csrc/bias_act.cu); the largest grid_x
+BIAS_ACT_THREADS, BIAS_ACT_MAX_GRID_X = 256, 2 ** 31 - 1
+#: the kernel's layouts, by index (`enum Mode`)
+BIAS_ACT_MODES = ('rows', 'planes', 'scalar')
+
+
+class BiasActLayout(NamedTuple):
+    '''How the kernel covers x: its mode (of BIAS_ACT_MODES), n elements,
+    C bias entries, `inner` elements after the bias axis, `rows` (the rows
+    mode's n / C rows, the planes mode's n / inner planes, else n), and the
+    launch's grid and block, (x, y) each.'''
+    mode: str
+    n: int
+    C: int
+    inner: int
+    rows: int
+    grid: tuple
+    block: tuple
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def bias_act_layout(shape, dim, itemsize, aligned) -> BiasActLayout:
+    '''The kernel's layout for a contiguous x of `shape` with the bias on
+    `dim`, elements of `itemsize` bytes, x 16-byte `aligned` or not. With
+    V = 16 / itemsize values a vector:
+      * 'rows' when aligned, inner == 1 and V divides C: block_x threads
+        take the row's C / V vectors (a row wider than 256 vectors split
+        evenly over grid_y, block_x then a multiple of 32), block_y rows
+        fill the block, grid_x covers the rows;
+      * 'planes' when aligned and V divides inner: block_x threads (32 to
+        256) take a plane's inner / V vectors, block_y planes fill the
+        block, grid_y covers a plane's vectors, grid_x the planes;
+      * 'scalar' otherwise: 256 threads, one element each.
+    A thread takes one vector (one element) a step; the grid covers x in
+    one step where its limits allow, and blocks loop where they do not.'''
+    dim %= len(shape)
+    C, inner, n = shape[dim], math.prod(shape[dim + 1:]), math.prod(shape)
+    if n == 0:
+        raise ValueError('bias_act: the kernel takes no empty x')
+    V = 16 // itemsize
+    if aligned and inner == 1 and C % V == 0:
+        cv = C // V
+        gy = _ceil(cv, BIAS_ACT_THREADS)
+        bx = cv if gy == 1 else _ceil(_ceil(cv, gy), 32) * 32
+        by = BIAS_ACT_THREADS // bx
+        rows = n // C
+        return BiasActLayout('rows', n, C, inner, rows,
+                             (min(_ceil(rows, by), BIAS_ACT_MAX_GRID_X), gy), (bx, by))
+    if aligned and inner % V == 0:
+        iv = inner // V
+        bx = min(BIAS_ACT_THREADS, _ceil(iv, 32) * 32)
+        by = BIAS_ACT_THREADS // bx
+        planes = n // inner
+        return BiasActLayout('planes', n, C, inner, planes,
+                             (min(_ceil(planes, by), BIAS_ACT_MAX_GRID_X),
+                              min(_ceil(iv, bx), 65535)), (bx, by))
+    return BiasActLayout('scalar', n, C, inner, n,
+                         (min(_ceil(n, BIAS_ACT_THREADS), BIAS_ACT_MAX_GRID_X), 1),
+                         (BIAS_ACT_THREADS, 1))
+
+
+class _BiasActParams(ctypes.Structure):
+    '''`struct BiasActParams` of csrc/bias_act.cu.'''
+    _fields_ = [('n', _ll), ('C', _ll), ('inner', _ll), ('rows', _ll),
+                ('mode', _i), ('dtype', _i), ('bias_f32', _i), ('act', _i),
+                ('alpha', _f), ('gain', _f), ('clamp', _f),
+                ('grid_x', _i), ('grid_y', _i), ('block_x', _i), ('block_y', _i)]
+
+
+#: call signature -> (parameter block, its address); the launch function
+#: and the raw-stream getter, bound at the first plan
+_bias_act_plans = {}
+_bias_act_fwd = _raw_stream = None
+
+
+def _bias_act_plan(shape, dtype, b_shape, b_dtype, dim, act, alpha, gain, clamp, aligned):
+    '''The parameter block of one call signature (checked once, here).'''
+    global _bias_act_fwd, _raw_stream
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f'bias_act: x must be float32 or bfloat16, got {dtype}')
+    C = shape[dim % len(shape)]
+    if b_shape != (C,):
+        raise ValueError(f'bias_act: the kernel needs a bias of {C} entries along dim {dim}, '
+                         f'got {tuple(b_shape)}')
+    lay = bias_act_layout(shape, dim, dtype.itemsize, aligned)
+    params = _BiasActParams(lay.n, lay.C, lay.inner, lay.rows, BIAS_ACT_MODES.index(lay.mode),
+                            _DTYPE_CODE[dtype], b_dtype == torch.float32, ACT_INDEX[act],
+                            alpha, gain, clamp, *lay.grid, *lay.block)
+    _bias_act_fwd = _library('bias_act').bias_act_fwd
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    if len(_bias_act_plans) >= 4096:
+        _bias_act_plans.clear()
+    plan = _bias_act_plans[(shape, dtype, b_shape, b_dtype, dim, act, alpha, gain, clamp,
+                            aligned)] = (params, ctypes.addressof(params))
+    return plan
 
 
 def bias_act_plain(x, b, dim, act, alpha, gain, clamp):
@@ -117,23 +225,29 @@ def bias_act_plain(x, b, dim, act, alpha, gain, clamp):
 
 def bias_act(x, b, dim, act, alpha, gain, clamp):
     '''`bias_act_plain`; the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. `clamp` < 0 means no clamp.'''
+    version for a CPU tensor. `clamp` < 0 means no clamp. `b` is f32 or of
+    x's dtype (another dtype is cast first); the kernel rounds it to x's.'''
     global bias_act_launches
-    if x.device.type == 'cpu':
-        return bias_act_plain(x, b, dim, act, alpha, gain, clamp)
-    if x.device.type != 'cuda':
+    if not x.is_cuda:
+        if x.device.type == 'cpu':
+            return bias_act_plain(x, b, dim, act, alpha, gain, clamp)
         raise ValueError(f'bias_act runs on cuda or cpu, not {x.device}')
-    _check_cuda('bias_act', x, b)
-    dim = dim % x.ndim
-    C = x.shape[dim]
-    if b is None or b.shape != (C,):
-        raise ValueError(f'bias_act: the kernel needs a bias of {C} entries along dim {dim}')
-    lib = _library('bias_act')
-    b = b.to(x.dtype).contiguous()
+    if b is None:
+        raise ValueError('bias_act: the kernel needs a bias')
+    if torch.is_grad_enabled() and (x.requires_grad or b.requires_grad):
+        raise RuntimeError(_FORWARD_ONLY.format('bias_act'))
+    if not x.is_contiguous():
+        raise ValueError('bias_act: x must be contiguous')
+    if b.dtype is not x.dtype and b.dtype is not torch.float32 or not b.is_contiguous():
+        b = b.to(x.dtype).contiguous()
+    device = x.get_device()
+    if b.get_device() != device:
+        raise ValueError(f'bias_act: the bias is on {b.device}, x on {x.device}')
+    key = (x.shape, x.dtype, b.shape, b.dtype, dim, act, alpha, gain, clamp,
+           x.data_ptr() % 16 == 0)
+    plan = _bias_act_plans.get(key) or _bias_act_plan(*key)
     y = torch.empty_like(x)
-    err = lib.bias_act_fwd(x.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel(), C,
-                           int(np.prod(x.shape[dim + 1:])), _DTYPE_CODE[x.dtype],
-                           ACT_INDEX[act], alpha, gain, clamp, _stream(x))
+    err = _bias_act_fwd(x.data_ptr(), b.data_ptr(), y.data_ptr(), plan[1], _raw_stream(device))
     if err:
         raise RuntimeError(f'bias_act_fwd failed: CUDA error {err}')
     bias_act_launches += 1

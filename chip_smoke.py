@@ -42,10 +42,14 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      all nine activations with and without the clamp; filtered_lrelu at the
      StyleGAN3-256 same-resolution layer shapes (B = 16, bf16, 12-tap Hann
      filters, padding 11, clamp 256) and one f32 shape; time each against
-     its plain version and bound, and bias_act's linear gain-1 calls
-     against torch.add; at the four filtered_lrelu shapes, two calls
-     bitwise equal and the kernel's device time alone; check that both
-     refuse a tensor that requires grad;
+     its plain version and bound; at each bias_act shape the kernel's
+     device time alone, ms a call of the wrapper and of the registry's
+     entry back to back, torch.add on the linear gain-1 calls and the copy
+     ceiling (y.copy_(x)) on the big one, where two calls are bitwise
+     equal and an f32 bias gives the same bits as the bias rounded to
+     bf16; at the four filtered_lrelu shapes, two calls bitwise equal and
+     the kernel's device time alone; check that both refuse a tensor that
+     requires grad;
   7. drive the op-level filtered_lrelu (impl='cuda', memory='store') once at
      each of the four shapes: 4 kernel launches;
   8. drive CIPS sampling at the recipe's 128px defaults, nothing cut
@@ -722,28 +726,120 @@ def _bias_act_work(x, act):
     return (2 * x.numel() + x.shape[-1]) * x.element_size(), ops
 
 
-def check_bias_act_kernel(dev):
-    '''bias_act against its plain version at the CIPS forward's shapes, and
-    every activation with and without the clamp at a small shape. Returns
-    the kernels-line entry without launches; ms, plain_ms and bound_ms sum
-    one forward's 41 calls.'''
-    from animeface_tpu_torch.ops import cuda_kernels as ck
+#: what the profiler's names of bias_act's kernels hold (the rows, planes
+#: and scalar kernels of csrc/bias_act.cu, and an older design's one kernel)
+BIAS_ACT_KERNEL = 'bias_act'
 
+
+def _bias_act_inputs(dev):
+    '''(label, x, b, act, gain, calls) at each shape of a CIPS forward's
+    calls (CIPS_BIAS_ACT_CALLS), the bias in x's dtype.'''
     g = torch.Generator(device=dev).manual_seed(4)
-    err = ms = plain_ms = bound_ms = linear_ms = linear_lib_ms = 0.0
+    out = []
     for shape, dtype, act, gain, calls in CIPS_BIAS_ACT_CALLS:
         x = torch.randn(shape, generator=g, device=dev).to(dtype)
         b = torch.randn(shape[-1], generator=g, device=dev).to(dtype)
-        e, t, tp = _hold_fwd(f'bias_act {act} {tuple(shape)} {str(dtype)[6:]}', ck.bias_act,
-                             ck.bias_act_plain, (x, b, -1, act, 0.2, gain, -1.0))
+        out.append((f'bias_act {act} {tuple(shape)} {str(dtype)[6:]}', x, b, act, gain, calls))
+    return out
+
+
+def _device_ms(what, fn, kernel, calls=20):
+    '''fn()'s device time a call: by torch.profiler over `calls` calls when
+    it recorded a launch of `kernel` for each of them (in a long run it may
+    record fewer), else by CUDA events over `calls` launches queued behind a
+    spin of the stream, so that the device, not the host, bounds them.'''
+    rows = profile_step(f'{calls} {what} calls', lambda: [fn() for _ in range(calls)])
+    recorded = sum(r[1] for r in rows if kernel in r[2])
+    if recorded == calls:
+        ms, how = sum(r[0] for r in rows if kernel in r[2]) / calls, 'profiler'
+    else:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5_000_000)                  # a few ms: the launches queue behind it
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / calls
+        how = f'events behind a spin; the profiler recorded {recorded} of {calls} launches'
+    print(f'{what} alone: {ms:.4f} ms of device time a call ({how})')
+    return ms
+
+
+def time_bias_act(label, x, b, act, gain, small_iters=200):
+    '''One CIPS call shape: (a) the kernel's device time alone
+    (`_device_ms`); then, by CUDA events over back-to-back calls, two
+    rounds in turns (A, B, .., B, A): (b) ms a call
+    of `ck.bias_act` ('wrapper') and of `ops.bias_act(impl='cuda')`
+    ('registry'), (c) of torch.add(x, b) ('add') on a linear gain-1 call,
+    and (d) on the big shape the copy ceiling y.copy_(x) ('copy'), what
+    this card's memory delivers for the same bytes. torch.add and the copy
+    are yardsticks the port never calls. Returns each one's mean.'''
+    from animeface_tpu_torch import ops
+    from animeface_tpu_torch.ops import cuda_kernels as ck
+
+    big = x.numel() >= 1 << 24
+    timed = dict(
+        wrapper=lambda: ck.bias_act(x, b, -1, act, 0.2, gain, -1.0),
+        registry=lambda: ops.bias_act(x, b, dim=-1, act=act, alpha=0.2, gain=gain, impl='cuda'))
+    if act == 'linear' and gain == 1:
+        timed['add'] = lambda: torch.add(x, b)
+    if big:
+        y = torch.empty_like(x)
+        timed['copy'] = lambda: y.copy_(x)
+    out = dict(device=_device_ms(label, timed['wrapper'], BIAS_ACT_KERNEL))
+    rounds = {k: [] for k in timed}
+    for k in list(timed) + list(reversed(timed)):
+        rounds[k].append(_time_ms(timed[k], 20 if big else small_iters))
+    print(f'{label}: back to back, ms a call (two rounds): ' + ', '.join(
+        f'{k} {v[0]:.4f} / {v[1]:.4f}' for k, v in rounds.items()))
+    out.update({k: sum(v) / len(v) for k, v in rounds.items()})
+    return out
+
+
+def check_bias_act_kernel(dev):
+    '''bias_act against its plain version at the CIPS forward's shapes
+    (and, at the big shape, an f32 bias against the same bias rounded to
+    bf16, bitwise, and two calls bitwise equal), timed by `time_bias_act`,
+    and every activation with and without the clamp at a small shape.
+    Returns the kernels-line entry without launches; ms, plain_ms,
+    bound_ms and device_ms sum one forward's 41 calls; small_call_ms and
+    small_call_library_ms are the kernel's and torch.add's ms a call over
+    the 22 linear gain-1 calls.'''
+    from animeface_tpu_torch.ops import cuda_kernels as ck
+
+    err = ms = plain_ms = bound_ms = device_ms = linear_ms = linear_lib_ms = 0.0
+    linear_calls, copy_ms = 0, None
+    for label, x, b, act, gain, calls in _bias_act_inputs(dev):
+        args = (x, b, -1, act, 0.2, gain, -1.0)
+        e, t, tp = _hold_fwd(label, ck.bias_act, ck.bias_act_plain, args)
         bound, _ = _bound(*_bias_act_work(x, act))
+        r = time_bias_act(label, x, b, act, gain)
         print(f'  x{calls} a forward; bound {bound:.4f} ms')
         err, ms, plain_ms = max(err, e), ms + calls * t, plain_ms + calls * tp
-        bound_ms += calls * bound
-        if act == 'linear' and gain == 1:       # one library call computes these
-            lib_t = _time_ms(lambda: torch.add(x, b))
-            print(f'  torch.add(x, b) {lib_t:.4f} ms')
-            linear_ms, linear_lib_ms = linear_ms + calls * t, linear_lib_ms + calls * lib_t
+        bound_ms, device_ms = bound_ms + calls * bound, device_ms + calls * r['device']
+        if 'add' in r:
+            linear_calls += calls
+            linear_ms += calls * r['wrapper']
+            linear_lib_ms += calls * r['add']
+        if 'copy' in r:
+            copy_ms = r['copy']
+            print(f'  copy ceiling {copy_ms:.4f} ms: the kernel alone at '
+                  f'{100 * copy_ms / r["device"]:.1f}% of it, {100 * bound / r["device"]:.1f}% '
+                  'of its bound')
+            if not torch.equal(ck.bias_act(*args), ck.bias_act(*args)):
+                raise AssertionError(f'{label}: two calls on the same inputs differ')
+            g = torch.Generator(device=dev).manual_seed(6)
+            b32 = b.float() + torch.randn(b.shape, generator=g, device=dev) * 1e-3  # not bf16
+            got = ck.bias_act(x, b32, -1, act, 0.2, gain, -1.0)
+            if not torch.equal(got, ck.bias_act(x, b32.to(x.dtype), -1, act, 0.2, gain, -1.0)):
+                raise AssertionError(f'{label}: an f32 bias is not rounded as b.to(x.dtype)')
+            _hold_fwd(f'{label}, f32 bias', ck.bias_act, ck.bias_act_plain,
+                      (x, b32, -1, act, 0.2, gain, -1.0))
+            print(f'{label}: two calls bitwise equal; an f32 bias equals it rounded to bf16, '
+                  'bitwise')
+    g = torch.Generator(device=dev).manual_seed(7)
     x = torch.randn((64, 256), generator=g, device=dev) * 3
     b = torch.randn(256, generator=g, device=dev)
     for act in sorted(ck.ACT_INDEX):
@@ -755,17 +851,20 @@ def check_bias_act_kernel(dev):
                 raise AssertionError(f'bias_act {act} clamp {clamp}: {e}')
             err = max(err, e)
     print(f'bias_act: 9 activations x clamp on/off at (64, 256) f32 agree within {TOL}')
-    print(f'bias_act, one CIPS forward (41 calls): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-          f'bound {bound_ms:.4f} ms (bytes)')
-    print(f'bias_act, the forward\'s 22 linear gain-1 calls: kernel {linear_ms:.4f} ms, '
-          f'torch.add {linear_lib_ms:.4f} ms')
+    print(f'bias_act, one CIPS forward (41 calls): kernel {ms:.4f} ms back to back, '
+          f'{device_ms:.4f} ms of device time alone, plain {plain_ms:.4f} ms, bound '
+          f'{bound_ms:.4f} ms (bytes)')
+    print(f'bias_act, the forward\'s {linear_calls} linear gain-1 calls: kernel '
+          f'{linear_ms:.4f} ms, torch.add {linear_lib_ms:.4f} ms')
     # no one library call computes the lrelu calls, so library_ms stays null;
     # the linear calls' times are their own keys
     return dict(name='bias_act', route='cuda', source='animeface_tpu_torch/csrc/bias_act.cu',
                 replaces='animeface_tpu/ops/pallas_kernels.py:815', launches=None,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by='bytes', library_ms=None, linear_ms=linear_ms,
-                linear_library_ms=linear_lib_ms)
+                linear_library_ms=linear_lib_ms, device_ms=device_ms,
+                small_call_ms=linear_ms / linear_calls,
+                small_call_library_ms=linear_lib_ms / linear_calls, copy_ceiling_ms=copy_ms)
 
 
 def _flrelu_work(x, Lu, Ld, pad):
@@ -895,14 +994,12 @@ def run_flrelu_path(dev, fu):
     return launches
 
 
-def run_cips_path(dev, card, **overrides):
-    '''CIPS sampling at the recipe's 128px defaults (`overrides` change
-    them): the sampler (G_ema on num_test fixed latents, impl='cuda'),
-    warm-up, then CIPS_FORWARDS forwards with the counts read around them.'''
+def cips_sampler(dev, **overrides):
+    '''CIPS's sampler at the recipe's 128px defaults (`overrides` change
+    them): G_ema on num_test fixed latents, impl='cuda', after two warm-up
+    forwards. Returns (args, G_ema, sample).'''
     from animeface_tpu_torch.implementations.CIPS.utils import (
         build_models, default_args, make_sampler)
-    from animeface_tpu_torch.nnutils import ada_geometry_cuda as agc
-    from animeface_tpu_torch.ops import cuda_kernels as ck
 
     args = default_args(**overrides)
     print('CIPS args:', json.dumps(vars(args)))
@@ -913,7 +1010,16 @@ def run_cips_path(dev, card, **overrides):
         sample()
     torch.cuda.synchronize()
     print(f'CIPS warm-up (2 forwards): {time.perf_counter() - t0:.2f} s')
+    return args, G_ema, sample
 
+
+def run_cips_path(dev, card, **overrides):
+    '''CIPS sampling at the recipe's 128px defaults (`cips_sampler`):
+    CIPS_FORWARDS forwards with the counts read around them.'''
+    from animeface_tpu_torch.nnutils import ada_geometry_cuda as agc
+    from animeface_tpu_torch.ops import cuda_kernels as ck
+
+    args, G_ema, sample = cips_sampler(dev, **overrides)
     torch.cuda.reset_peak_memory_stats()
     ck.bias_act_launches = ck.filtered_lrelu_launches = 0
     agc.fwd_launches = agc.bwd_launches = agc.line_fwd_launches = agc.line_bwd_launches = 0
@@ -942,7 +1048,7 @@ def run_cips_path(dev, card, **overrides):
     rows = profile_step('CIPS sampling forward', sample)
     if rows:
         busy = sum(r[0] for r in rows)
-        kern = sum(r[0] for r in rows if 'bias_act_kernel' in r[2])
+        kern = sum(r[0] for r in rows if BIAS_ACT_KERNEL in r[2])
         print(f'CIPS profile: bias_act kernel {kern:.3f} ms of {busy:.3f} ms device busy '
               f'({100 * kern / busy:.1f}%)')
     check_cips_against_cpu(G_ema, args, dev)

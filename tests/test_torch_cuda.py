@@ -410,6 +410,99 @@ def test_bias_act_kernel_matches_plain(cuda, shape, dim, dtype):
             assert _err_ok(got, want), (act, clamp)
 
 
+def test_bias_act_kernel_honours_the_stream(cuda):
+    '''Under `with torch.cuda.stream(s)` the kernel runs on s: it reads x
+    only after the work queued on s before it (a spin, then the copy that
+    fills x), and its output is right once s is done.'''
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    src = torch.randn((64, 2048), generator=gen, device=cuda)
+    b = torch.randn(2048, generator=gen, device=cuda)
+    x = torch.zeros_like(src)
+    want = ck.bias_act_plain(src, b, -1, 'lrelu', 0.2, 1.4, -1.0)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        assert torch._C._cuda_getCurrentRawStream(cuda.index or 0) == s.cuda_stream
+        torch.cuda._sleep(50_000_000)               # tens of ms of spinning on s
+        x.copy_(src)
+        got = ck.bias_act(x, b, -1, 'lrelu', 0.2, 1.4, -1.0)
+    s.synchronize()
+    assert torch.equal(got, ck.bias_act(src, b, -1, 'lrelu', 0.2, 1.4, -1.0))
+    assert _err_ok(got, want)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bias_act_kernel_misaligned_x_takes_the_scalar_mode(cuda, dtype):
+    '''A contiguous view one element into its storage is not 16-byte
+    aligned: the layout is the scalar mode, and the output is right.'''
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    shape = (16, 8, 512)
+    base = torch.randn(16 * 8 * 512 + 1, generator=gen, device=cuda).to(dtype)
+    x = base[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    lay = ck.bias_act_layout(x.shape, -1, x.element_size(), x.data_ptr() % 16 == 0)
+    assert lay.mode == 'scalar'
+    b = torch.randn(512, generator=gen, device=cuda)
+    for act in ('linear', 'lrelu', 'swish'):
+        got = ck.bias_act(x, b, -1, act, 0.2, 1.3, 0.9)
+        assert _err_ok(got, ck.bias_act_plain(x, b, -1, act, 0.2, 1.3, 0.9)), act
+        assert torch.equal(got, ck.bias_act(x.clone(), b, -1, act, 0.2, 1.3, 0.9)), act
+
+
+@pytest.mark.parametrize('shape,dim', [((16, 512), -1), ((8, 256, 512), -1), ((4, 128, 8, 8), 1)])
+def test_bias_act_kernel_f32_bias_with_bf16_x(cuda, shape, dim):
+    '''An f32 bias with a bf16 x: within tolerance of the plain version,
+    and bit for bit the kernel given the bias rounded to bf16.'''
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn(shape[dim], generator=gen, device=cuda) * 0.7
+    assert not torch.equal(b, b.to(torch.bfloat16).float())
+    for act in ('linear', 'lrelu', 'tanh'):
+        got = ck.bias_act(x, b, dim, act, 0.2, 1.3, -1.0)
+        assert got.dtype == torch.bfloat16
+        assert _err_ok(got, ck.bias_act_plain(x, b, dim, act, 0.2, 1.3, -1.0)), act
+        assert torch.equal(got, ck.bias_act(x, b.to(torch.bfloat16), dim, act, 0.2, 1.3, -1.0))
+
+
+def test_bias_act_kernel_alternating_calls(cuda):
+    '''Calls that alternate shapes, dtypes, dims, activations, gains,
+    clamps and bias dtypes stay right through the wrapper's memo of
+    parameter blocks: three rounds, the second in reverse order.'''
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    cases = []
+    for shape, dim, dtype, act, gain, clamp, bf16_bias in [
+            ((16, 512), -1, torch.float32, 'linear', 1.0, -1.0, False),
+            ((16, 512), -1, torch.float32, 'lrelu', 1.4, -1.0, False),
+            ((16, 512), -1, torch.bfloat16, 'lrelu', 1.4, -1.0, True),
+            ((16, 512), -1, torch.bfloat16, 'lrelu', 1.4, -1.0, False),
+            ((4, 256, 512), -1, torch.bfloat16, 'lrelu', 1.4, 0.8, False),
+            ((4, 128, 8, 8), 1, torch.float32, 'sigmoid', 1.0, -1.0, False),
+            ((4, 128, 5, 5), 1, torch.bfloat16, 'elu', 2.0, 0.5, True),
+            ((16, 1024), 1, torch.float32, 'linear', 1.0, -1.0, False)]:
+        x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+        b = torch.randn(shape[dim], generator=gen, device=cuda)
+        b = b.to(dtype) if bf16_bias else b
+        args = (x, b, dim, act, 0.2, gain, clamp)
+        cases.append((args, ck.bias_act_plain(*args)))
+    for order in (cases, cases[::-1], cases):
+        for args, want in order:
+            got = ck.bias_act(*args)
+            assert got.shape == want.shape and got.dtype == want.dtype
+            assert _err_ok(got, want), args[2:]
+
+
+def test_bias_act_kernel_repeatable_at_the_big_shape(cuda):
+    '''Two calls at CIPS's big shape ([16, 16384, 512] bf16) give
+    bitwise-equal outputs: the kernel has no reduction.'''
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn((16, 16384, 512), generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn(512, generator=gen, device=cuda)
+    args = (x, b, -1, 'lrelu', 0.2, 1.4142135, -1.0)
+    got, again = ck.bias_act(*args), ck.bias_act(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
 HANN = ops.setup_filter(np.hanning(12))
 
 

@@ -19,13 +19,14 @@ mods = [m.name for m in pkgutil.walk_packages(animeface_tpu_torch.__path__,
                                               'animeface_tpu_torch.')]
 for name in mods:
     importlib.import_module(name)
-import chip_smoke, time_line_kernels, time_flrelu_kernel
+import chip_smoke, time_line_kernels, time_flrelu_kernel, time_bias_act_kernel
 print(' '.join(mods))
 '''
 
 #: modules that must be among those the guard imported
 REQUIRED = (
     'animeface_tpu_torch.nnutils.ada_geometry_cuda',
+    'animeface_tpu_torch.ops.activations',
     'animeface_tpu_torch.ops.bias_act',
     'animeface_tpu_torch.ops.conv2d_resample',
     'animeface_tpu_torch.ops.filtered_lrelu',
