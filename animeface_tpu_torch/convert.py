@@ -1,5 +1,5 @@
 '''JAX package parameters -> the port's `state_dict`, for StyleGAN2 and
-StyleGAN3 G and D, and the CIPS G.
+StyleGAN3 G and D, the CIPS G, and FastGAN's G and D.
 
 Input: a flax params tree (nested dicts of numpy arrays, as
 `jax.device_get(variables['params'])` gives). Output: a dict of float32
@@ -15,8 +15,9 @@ The equalized-lr factor gain/sqrt(fan) is applied at run time on both sides,
 so raw values carry over unchanged.
 
 StyleGAN2 below; StyleGAN3 (`convert_stylegan3_generator`,
-`convert_stylegan3_discriminator`) and CIPS (`convert_cips_generator`;
-its D is StyleGAN3's) after it.
+`convert_stylegan3_discriminator`), CIPS (`convert_cips_generator`; its D
+is StyleGAN3's) and FastGAN (`convert_fastgan_generator`,
+`convert_fastgan_discriminator`) after it.
 
 Generator:                                 port
   map/ELRDense_i                           map.layers.i
@@ -181,4 +182,90 @@ def convert_cips_generator(params, moments) -> dict:
         out[f'layers.{i}.bias'] = _t(layer['bias'])
     for i, p in enumerate(_indexed(params, 'ModulatedFC')):
         _modulated_fc(p, f'to_rgbs.{i}', out)
+    return out
+
+
+# ---------------------------------------------------------------- FastGAN
+#
+# Input: the flax variables {'params', 'batch_stats'}. A spectral-normalized
+# layer (SNConv_i / SNDense_0) holds its Conv_0 or Dense_0 params, and in
+# batch_stats SpectralNorm_0/{Conv_0,Dense_0}/kernel/u [1, out] (-> `u`
+# [out]; sigma is recomputed every call and not kept). A BatchNorm Norm_i
+# holds BatchNorm_0/{scale, bias} and the stats {mean, var}; an 'in' Norm
+# holds nothing.
+# Generator:                                          port
+#   SNDense_0 / Norm_0                                input / input_norm
+#   UpBlock_i/{SNConv_0, Norm_0}                      ups.i.{conv, norm}
+#   SkipLayerExcitation_j/SNConv_{0, 1}               sles.j.{squeeze, excite}
+#   SNConv_0                                          out
+# Discriminator (k = max(init_downs, 1) stem convs):
+#   SNConv_0..k-1 / Norm_0..k-2                       stem.i / stem_norms.i
+#   ResBlock_i/{SNConv_0, Norm_0, SNConv_1, Norm_1, SNConv_2}
+#                                                     blocks.i.{conv1, norm1, conv2, norm2, skip}
+#   SNConv_k / Norm_{k-1} / SNConv_{k+1}              logits_conv / logits_norm / logits_out
+#   decoder_{8,16}/{UpBlock_i, SNConv_0}              decoder_{8,16}.{ups.i, out}
+
+def _sn_layer(p, s, prefix, out):
+    name = 'Conv_0' if 'Conv_0' in p else 'Dense_0'
+    k = np.asarray(p[name]['kernel'])
+    out[f'{prefix}.weight'] = _t(k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T)
+    if 'bias' in p[name]:
+        out[f'{prefix}.bias'] = _t(p[name]['bias'])
+    out[f'{prefix}.u'] = _t(np.asarray(s['SpectralNorm_0'][f'{name}/kernel/u']).reshape(-1))
+
+
+def _fastgan_norm(p, s, prefix, out):
+    if p is None:                                   # 'in': no parameters
+        return
+    out[f'{prefix}.weight'] = _t(p['BatchNorm_0']['scale'])
+    out[f'{prefix}.bias'] = _t(p['BatchNorm_0']['bias'])
+    out[f'{prefix}.running_mean'] = _t(s['BatchNorm_0']['mean'])
+    out[f'{prefix}.running_var'] = _t(s['BatchNorm_0']['var'])
+
+
+def _fastgan_up(p, s, prefix, out):
+    _sn_layer(p['SNConv_0'], s['SNConv_0'], f'{prefix}.conv', out)
+    _fastgan_norm(p.get('Norm_0'), s.get('Norm_0'), f'{prefix}.norm', out)
+
+
+def convert_fastgan_generator(variables) -> dict:
+    p, s = variables['params'], variables['batch_stats']
+    out = {}
+    _sn_layer(p['SNDense_0'], s['SNDense_0'], 'input', out)
+    _fastgan_norm(p.get('Norm_0'), s.get('Norm_0'), 'input_norm', out)
+    for i, (pi, si) in enumerate(zip(_indexed(p, 'UpBlock'), _indexed(s, 'UpBlock'))):
+        _fastgan_up(pi, si, f'ups.{i}', out)
+    for j, (pj, sj) in enumerate(zip(_indexed(p, 'SkipLayerExcitation'),
+                                     _indexed(s, 'SkipLayerExcitation'))):
+        _sn_layer(pj['SNConv_0'], sj['SNConv_0'], f'sles.{j}.squeeze', out)
+        _sn_layer(pj['SNConv_1'], sj['SNConv_1'], f'sles.{j}.excite', out)
+    _sn_layer(p['SNConv_0'], s['SNConv_0'], 'out', out)
+    return out
+
+
+def convert_fastgan_discriminator(variables) -> dict:
+    p, s = variables['params'], variables['batch_stats']
+    out = {}
+    convs, conv_stats = _indexed(p, 'SNConv'), _indexed(s, 'SNConv')
+    norms, norm_stats = _indexed(p, 'Norm'), _indexed(s, 'Norm')
+    k = len(convs) - 2
+    for i in range(k):
+        _sn_layer(convs[i], conv_stats[i], f'stem.{i}', out)
+    for i in range(k - 1):
+        _fastgan_norm(norms[i] if norms else None, norm_stats[i] if norms else None,
+                      f'stem_norms.{i}', out)
+    for i, (pb, sb) in enumerate(zip(_indexed(p, 'ResBlock'), _indexed(s, 'ResBlock'))):
+        for name, j in (('conv1', 0), ('conv2', 1), ('skip', 2)):
+            _sn_layer(pb[f'SNConv_{j}'], sb[f'SNConv_{j}'], f'blocks.{i}.{name}', out)
+        for name, j in (('norm1', 0), ('norm2', 1)):
+            _fastgan_norm(pb.get(f'Norm_{j}'), sb.get(f'Norm_{j}'), f'blocks.{i}.{name}', out)
+    _sn_layer(convs[k], conv_stats[k], 'logits_conv', out)
+    _fastgan_norm(norms[k - 1] if norms else None, norm_stats[k - 1] if norms else None,
+                  'logits_norm', out)
+    _sn_layer(convs[k + 1], conv_stats[k + 1], 'logits_out', out)
+    for dec in ('decoder_8', 'decoder_16'):
+        for i, (pu, su) in enumerate(zip(_indexed(p[dec], 'UpBlock'),
+                                         _indexed(s[dec], 'UpBlock'))):
+            _fastgan_up(pu, su, f'{dec}.ups.{i}', out)
+        _sn_layer(p[dec]['SNConv_0'], s[dec]['SNConv_0'], f'{dec}.out', out)
     return out

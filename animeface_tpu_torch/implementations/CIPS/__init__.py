@@ -1,1 +1,1 @@
-'''CIPS in PyTorch: the generator, the recipe's models and its sampler.'''
+'''CIPS in PyTorch: the generator, the recipe's models, its training step and its sampler.'''

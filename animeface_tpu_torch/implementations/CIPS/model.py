@@ -99,6 +99,7 @@ class Generator(nn.Module):
         assert num_layers % 2 == 0
         self.image_size = image_size
         self.image_channels = image_channels
+        self.latent_dim = latent_dim
         kw = dict(dtype=dtype, generator=generator)
         self.map = Mapping(latent_dim, style_dim, map_num_layers, pixel_norm, ema_decay,
                            generator=generator)
@@ -114,6 +115,10 @@ class Generator(nn.Module):
             to_rgbs.append(ModulatedFC(och, style_dim, image_channels, demod=False, **kw))
         self.layers = nn.ModuleList(layers)
         self.to_rgbs = nn.ModuleList(to_rgbs)
+
+    def moment_buffers(self):
+        '''The buffers a forward with `train=True` updates: w_avg.'''
+        return [self.map.w_avg]
 
     def forward(self, z, truncation_psi: float = 1.0, train: bool = False):
         w = self.map(z, truncation_psi, train=train)

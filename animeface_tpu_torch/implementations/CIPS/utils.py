@@ -1,10 +1,21 @@
-'''The CIPS recipe in PyTorch: its defaults, its models and its sampler.
+'''The CIPS recipe in PyTorch: its defaults, its models, its training step
+and its sampler.
 
 Counterpart of `animeface_tpu/implementations/CIPS/utils.py`: the CLI
 defaults of `main`, the models `train` builds (G in the compute dtype,
-bf16 unless `no_bf16`, StyleGAN3's D, the EMA copy of G) and `sample_fn`,
-the G_ema forward on `num_test` fixed latents. Training waits for
-DiffAugment, the recipe's augmentation, which is not ported yet.
+bf16 unless `no_bf16`, StyleGAN3's D, the EMA copy of G), the step and
+`sample_fn`, the G_ema forward on `num_test` fixed latents. The JAX step
+is StyleGAN3's with DiffAugment, line for line: the non-saturating loss
+with additive R1 (times gp_lambda, on the raw reals) where step %
+gp_every == 0, DiffAugment with the reals' draws and the fakes' (again in
+the G phase), the G phase on the pre-step `w_avg` while the step keeps the
+D-phase forward's, the mapping at lr * map_lr_scale (the top-level
+`Linear_*` of the JAX G, the port's `map.*`), Adam (0, 0.99), G EMA 0.999
+with the moments copied. So the port's step, optimizers and state are
+StyleGAN3's (`build_train_step`, `make_optimizers`, `init_state`), and
+`build_training` assembles them around CIPS's models. Training runs the
+ops registry's default ('torch'; the 'cuda' kernels are forward only), the
+sampler impl 'cuda'.
 '''
 
 from __future__ import annotations
@@ -16,6 +27,9 @@ import torch
 
 from animeface_tpu_torch import resolve_device
 from animeface_tpu_torch.implementations.CIPS.model import Discriminator, Generator
+from animeface_tpu_torch.implementations.StyleGAN3 import utils as sg3
+from animeface_tpu_torch.implementations.StyleGAN3.utils import (  # noqa: F401
+    build_train_step, init_state, make_optimizers)
 from animeface_tpu_torch.nnutils.rng import make_generator, sample_nnoise
 from animeface_tpu_torch.ops import registry
 
@@ -76,3 +90,15 @@ def make_sampler(G_ema, args, seed=0, impl=None):
             registry.set_default_impl(before)
 
     return sample
+
+
+def build_training(args, device=None, seed=0):
+    '''Everything one CIPS training step needs, from `seed`: StyleGAN3's
+    `assemble_training` namespace around CIPS's models (G, D, G_ema, the
+    optimizers, `state`, `steps[do_r1]`, `uses_r1`, `train_step(state,
+    real, draws=None) -> metrics`), and `sample_fn`, the sampler on G_ema
+    under impl 'cuda'.'''
+    G, D, G_ema = build_models(args, device, seed)
+    run = sg3.assemble_training(args, G, D, G_ema, seed)
+    run.sample_fn = make_sampler(G_ema, args, seed, impl='cuda')
+    return run

@@ -27,10 +27,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from animeface_tpu_torch.ops import setup_filter, filter2d, upfirdn2d
+from animeface_tpu_torch.ops.activations import leaky_relu
 
 
 def _leaky(x):
-    return F.leaky_relu(x, 0.2)
+    return leaky_relu(x, 0.2)
 
 
 def _normal(shape, std, generator):

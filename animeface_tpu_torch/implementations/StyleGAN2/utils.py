@@ -1,13 +1,14 @@
 '''StyleGAN2(-ADA) training step in PyTorch.
 
 Counterpart of `animeface_tpu/implementations/StyleGAN2/utils.py`
-(`pl_lengths`, `build_train_step`, `build_models`, `make_optimizers`).
-Semantics kept:
+(`pl_lengths`, `build_train_step`, `build_models`, `make_optimizers`, and
+the step assembly of `train`: `build_training`). Semantics kept:
   * lazy regularization REPLACES the adversarial loss on penalty steps: D
     does R1 only every d_k steps, G path length only every g_k steps;
   * Adam lr/beta rescale by k/(k+1) when a penalty is on;
-  * R1 on the raw reals; the augmentation on both reals and fakes before D;
-    the adversarial D pass is one stacked [real; fake] batch whose
+  * R1 on the raw reals; the augmentation (by default DiffAugment with the
+    recipe's policy) on both reals and fakes before D, each with its own
+    draws; the adversarial D pass is one stacked [real; fake] batch whose
     minibatch-stddev groups never mix the two;
   * the adaptive-p controller updates from D(real) on adversarial steps and
     ticks on R1 steps; G EMA every step.
@@ -20,6 +21,7 @@ draw is an input (`draws`), by default drawn from `state['generator']`.
 from __future__ import annotations
 
 import copy
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -27,8 +29,9 @@ import torch
 from animeface_tpu_torch import resolve_device
 from animeface_tpu_torch.implementations.StyleGAN2.model import Generator, Discriminator
 from animeface_tpu_torch.nnutils.ada import ada_update_p, ada_tick
-from animeface_tpu_torch.nnutils.loss import r1_regularizer
-from animeface_tpu_torch.nnutils.rng import sample_nnoise
+from animeface_tpu_torch.nnutils.diffaugment import diff_augment, draw_diff_augment
+from animeface_tpu_torch.nnutils.loss import NonSaturatingLoss, r1_regularizer
+from animeface_tpu_torch.nnutils.rng import make_generator, sample_nnoise
 from animeface_tpu_torch.nnutils.training import step_all_parameters, update_ema
 
 
@@ -43,8 +46,29 @@ def pl_lengths(G, w, noise, pl_noise):
     return torch.sqrt((grads * grads).sum(dim=1) + 1e-12)
 
 
-def draw_step_inputs(G, real, generator):
-    '''Every random draw of one step, from `generator` (on real's device).'''
+#: the StyleGAN2 recipe's CLI defaults (JAX `STYLEGAN2_ARGS`), and the
+#: global ones it trains with (`utils/argument.py`: image 128, batch 32).
+#: The port's D groups its minibatch stddev 'strided' only.
+STYLEGAN2_DEFAULTS = dict(
+    image_size=128, batch_size=32, image_channels=3, style_dim=512, channels=32,
+    max_channels=512, block_num_conv=2, map_num_layers=8, map_lr=0.01,
+    disable_map_norm=False, mbsd_groups=4, lr=0.001, beta1=0., beta2=0.99, g_k=8, d_k=16,
+    r1_lambda=10., pl_lambda=0., policy='color,translation', no_bf16=False)
+
+
+def default_args(**overrides):
+    '''The recipe's defaults as an argument namespace, with overrides.'''
+    unknown = set(overrides) - set(STYLEGAN2_DEFAULTS)
+    if unknown:
+        raise TypeError(f'unknown StyleGAN2 arguments: {sorted(unknown)}')
+    return SimpleNamespace(**dict(STYLEGAN2_DEFAULTS, **overrides))
+
+
+def draw_step_inputs(G, real, generator, policy=''):
+    '''Every random draw of one step, from `generator` (on real's device):
+    with a DiffAugment `policy`, `aug_d` for the D phase's stacked [real;
+    fake] batch (the first B rows the reals') and `aug_g` for the G phase's
+    fakes.'''
     B, C, H, W = real.shape
     return dict(
         z_d=sample_nnoise((B, G.style_dim), generator),
@@ -52,27 +76,33 @@ def draw_step_inputs(G, real, generator):
         z_g=sample_nnoise((B, G.style_dim), generator),
         noise_g=generator,
         pl_noise=sample_nnoise((B, C, H, W), generator, std=1 / np.sqrt(H * W)),
+        aug_d=draw_diff_augment(2 * B, H, W, policy, generator),
+        aug_g=draw_diff_augment(B, H, W, policy, generator),
     )
 
 
 def build_train_step(G, D, G_ema, g_opt, d_opt, loss, r1_lambda, pl_lambda,
                      d_k, g_k, ema_decay, do_r1: bool, do_pl: bool,
-                     augment_fn=None, ada_enabled: bool = False):
+                     augment_fn=None, ada_enabled: bool = False,
+                     policy: str = STYLEGAN2_DEFAULTS['policy']):
     '''One iteration (D phase, G phase, EMA) for one (do_r1, do_pl) variant.
 
     `augment_fn(images, state) -> images` runs on the D input path (the ADA
-    AugmentPipe for StyleGAN2-ADA); default: no augmentation. In the D phase
-    it gets the stacked [real; fake] batch under `no_grad`, so no backward
-    graph goes through it there; in the G phase it is differentiated.
+    AugmentPipe for StyleGAN2-ADA); default: DiffAugment with `policy`, on
+    the draws `aug_d` and `aug_g`. In the D phase it gets the stacked
+    [real; fake] batch under `no_grad`, so no backward graph goes through
+    it there; in the G phase it is differentiated.
     Returns `train_step(state, real, draws=None) -> metrics`.
     '''
-    if augment_fn is None:
-        def augment_fn(images, state):
-            return images
+    def augment(images, state, draws, which):
+        if augment_fn is None:
+            return diff_augment(images, policy, draws[which])
+        return augment_fn(images, state)
 
     def train_step(state, real, draws=None):
         if draws is None:
-            draws = draw_step_inputs(G, real, state['generator'])
+            draws = draw_step_inputs(G, real, state['generator'],
+                                     policy if augment_fn is None else '')
         B = real.shape[0]
 
         # ---------------- D phase ----------------
@@ -85,7 +115,7 @@ def build_train_step(G, D, G_ema, g_opt, d_opt, loss, r1_lambda, pl_lambda,
             d_loss = r1_regularizer(real, D) * (r1_lambda * d_k)
         else:
             with torch.no_grad():
-                both = augment_fn(torch.cat([real.float(), fake.float()]), state)
+                both = augment(torch.cat([real.float(), fake.float()]), state, draws, 'aug_d')
             logits = D(both, splits=2)
             real_prob = logits[:B].detach()
             d_loss = loss.d_loss(logits[:B], logits[B:])
@@ -101,7 +131,7 @@ def build_train_step(G, D, G_ema, g_opt, d_opt, loss, r1_lambda, pl_lambda,
             g_loss = ((lengths - state['pl_mean']) ** 2).mean() * (pl_lambda * g_k)
         else:
             fake, _ = G(draws['z_g'], noise=draws['noise_g'])
-            g_loss = loss.g_loss(D(augment_fn(fake, state)))
+            g_loss = loss.g_loss(D(augment(fake, state, draws, 'aug_g')))
         g_loss.backward()
         step_all_parameters(g_opt, G)
         D.requires_grad_(True)
@@ -154,3 +184,33 @@ def make_optimizers(args, G, D):
 
     return (adam(G.parameters(), args.g_k, args.pl_lambda > 0),
             adam(D.parameters(), args.d_k, args.r1_lambda > 0))
+
+
+def build_training(args, device=None, seed=0):
+    '''Everything one StyleGAN2 training step needs, from `seed`: returns a
+    namespace with G, D, G_ema, the optimizers, `state` (step count,
+    generator, pl_mean), the variants `steps[(do_r1, do_pl)]`, `variant(i)`
+    and `train_step(state, real, draws=None) -> metrics`, which picks the
+    variant of step `state['step']`: R1 at i % d_k == 0 and path length at
+    i % g_k == 0, never at step 0, each only with its lambda above 0.'''
+    device = resolve_device(device)
+    compute_dtype = torch.float32 if args.no_bf16 else torch.bfloat16
+    G, D, G_ema = build_models(args, compute_dtype, device, seed)
+    g_opt, d_opt = make_optimizers(args, G, D)
+    state = dict(pl_mean=torch.zeros((), device=device), step=0,
+                 generator=make_generator(seed, device))
+    loss = NonSaturatingLoss()
+    steps = {(r1, pl): build_train_step(G, D, G_ema, g_opt, d_opt, loss, args.r1_lambda,
+                                        args.pl_lambda, args.d_k, args.g_k, 0.999, r1, pl,
+                                        policy=args.policy)
+             for r1 in (False, True) for pl in (False, True)}
+
+    def variant(i):
+        return (bool(args.r1_lambda > 0 and i % args.d_k == 0 and i != 0),
+                bool(args.pl_lambda > 0 and i % args.g_k == 0 and i != 0))
+
+    def train_step(st, real, draws=None):
+        return steps[variant(st['step'])](st, real, draws)
+
+    return SimpleNamespace(G=G, D=D, G_ema=G_ema, g_opt=g_opt, d_opt=d_opt, state=state,
+                           steps=steps, variant=variant, train_step=train_step)

@@ -1,12 +1,14 @@
 '''StyleGAN3 training step in PyTorch.
 
 Counterpart of `animeface_tpu/implementations/StyleGAN3/utils.py`
-(`build_train_step`, `build_models`, `init_state`, `make_optimizers`).
-Semantics kept:
+(`build_train_step`, `build_models`, `init_state`, `make_optimizers`, and
+the step assembly of `train`: `build_training`). Semantics kept:
   * non-saturating loss with ADDITIVE R1 (times gp_lambda) on R1 steps,
     taken on the raw reals; the caller picks the variant per step;
-  * D sees the augmented reals and the augmented fakes in two separate
-    calls, so minibatch-stddev statistics are per call;
+  * the augmentation (by default DiffAugment with the recipe's policy) on
+    the reals and the fakes, each with its own draws; D sees the augmented
+    reals and the augmented fakes in two separate calls, so
+    minibatch-stddev statistics are per call;
   * the G phase draws its fakes from the same z with the pre-step moments
     (the JAX G phase applies `state['G_moments']` and drops its own moment
     update), and augments them with the D-phase fakes' draws (the same key);
@@ -24,18 +26,21 @@ as 0-dim tensors, without a host sync. Every random draw is an input
 from __future__ import annotations
 
 import copy
+from types import SimpleNamespace
 
 import torch
 
 from animeface_tpu_torch import resolve_device
 from animeface_tpu_torch.implementations.StyleGAN3.model import Generator, Discriminator
 from animeface_tpu_torch.nnutils.ada import ada_update_p
-from animeface_tpu_torch.nnutils.loss import r1_regularizer
+from animeface_tpu_torch.nnutils.diffaugment import diff_augment, draw_diff_augment
+from animeface_tpu_torch.nnutils.loss import NonSaturatingLoss, r1_regularizer
 from animeface_tpu_torch.nnutils.rng import make_generator, sample_nnoise
 from animeface_tpu_torch.nnutils.training import step_all_parameters, update_ema
 
-#: the StyleGAN3 recipes' CLI defaults (JAX `STYLEGAN3_ARGS`), and the
-#: global ones they train with (`utils/argument.py`: image 128, batch 32)
+#: the StyleGAN3 recipe's CLI defaults (JAX `STYLEGAN3_ARGS` and the
+#: recipe's DiffAugment `policy`), and the global ones it trains with
+#: (`utils/argument.py`: image 128, batch 32)
 STYLEGAN3_DEFAULTS = dict(
     image_size=128, batch_size=32, image_channels=3, latent_dim=512, style_dim=512,
     num_layers=14, map_num_layers=2, channels=32, max_channels=512, kernel_size=3,
@@ -43,42 +48,66 @@ STYLEGAN3_DEFAULTS = dict(
     first_stopband=2 ** 2.1, last_stopband_rel=2 ** 0.3, d_channels=32,
     d_max_channels=512, mbsd_group_size=4, mbsd_channels=1, bottom=4,
     gaus_filter_size=4, lr=0.0025, map_lr_scale=0.01, betas=(0., 0.99),
-    gp_lambda=3., gp_every=16, no_bf16=False)
+    gp_lambda=3., gp_every=16, policy='color,translation', no_bf16=False)
 
 
-def draw_step_inputs(G, real, generator):
-    '''Every random draw of one step: z, and the generator the augment
-    draws from (rewound for the G phase, so the fakes replay their draws).'''
-    return dict(z=sample_nnoise((real.shape[0], G.latent_dim), generator), aug=generator)
+def default_args(**overrides):
+    '''The recipe's defaults as an argument namespace, with overrides.'''
+    unknown = set(overrides) - set(STYLEGAN3_DEFAULTS)
+    if unknown:
+        raise TypeError(f'unknown StyleGAN3 arguments: {sorted(unknown)}')
+    return SimpleNamespace(**dict(STYLEGAN3_DEFAULTS, **overrides))
+
+
+def draw_step_inputs(G, real, generator, policy=None):
+    '''Every random draw of one step: z, and with a DiffAugment `policy`
+    the reals' draws `aug_r` and the fakes' `aug_f` (the G phase reuses
+    them); with none, `aug`, the generator a caller's augment_fn draws
+    from (rewound for the G phase, so the fakes replay their draws).'''
+    B, _, H, W = real.shape
+    z = sample_nnoise((B, G.latent_dim), generator)
+    if policy is None:
+        return dict(z=z, aug=generator)
+    return dict(z=z, aug_r=draw_diff_augment(B, H, W, policy, generator, real.dtype),
+                aug_f=draw_diff_augment(B, H, W, policy, generator))
 
 
 def _generator_state(key):
     return key.get_state() if isinstance(key, torch.Generator) else None
 
 
-def build_train_step(G, D, G_ema, g_opt, d_opt, loss, gp_lambda, do_r1: bool, augment_fn,
-                     ema_decay: float = 0.999, ada_enabled: bool = False):
+def build_train_step(G, D, G_ema, g_opt, d_opt, loss, gp_lambda, do_r1: bool,
+                     augment_fn=None, ema_decay: float = 0.999, ada_enabled: bool = False,
+                     policy: str = STYLEGAN3_DEFAULTS['policy']):
     '''One iteration (D phase, G phase, EMA) for one variant (do_r1).
 
-    `augment_fn(key, images, state) -> images` runs on D's inputs; `key`
-    is `draws['aug']`. (The JAX recipe's default, DiffAugment, is not
-    ported: the caller passes the augmentation.)
+    `augment_fn(key, images, state) -> images` runs on D's inputs (the ADA
+    AugmentPipe for the ADA recipe), with `key` = `draws['aug']` for the
+    reals and the fakes; default: DiffAugment with `policy`, on the draws
+    `aug_r` (reals) and `aug_f` (fakes, in both phases).
     Returns `train_step(state, real, draws=None) -> metrics`.
     '''
     moments = G.moment_buffers()
+    diffaugment = augment_fn is None
+    if diffaugment:
+        def augment_fn(key, images, state):
+            return diff_augment(images, policy, key)
 
     def train_step(state, real, draws=None):
         if draws is None:
-            draws = draw_step_inputs(G, real, state['generator'])
-        z, key = draws['z'], draws['aug']
+            draws = draw_step_inputs(G, real, state['generator'],
+                                     policy if diffaugment else None)
+        z = draws['z']
+        key_r, key_f = ((draws['aug_r'], draws['aug_f']) if diffaugment
+                        else (draws['aug'], draws['aug']))
 
         # ---------------- D phase ----------------
         before = [m.clone() for m in moments]
         with torch.no_grad():
             fake = G(z, train=True)
-            real_aug = augment_fn(key, real, state)
-            replay = _generator_state(key)
-            fake_aug = augment_fn(key, fake, state)
+            real_aug = augment_fn(key_r, real, state)
+            replay = _generator_state(key_f)
+            fake_aug = augment_fn(key_f, fake, state)
         after = [m.clone() for m in moments]
         D.requires_grad_(True)
         d_opt.zero_grad(set_to_none=True)
@@ -100,8 +129,8 @@ def build_train_step(G, D, G_ema, g_opt, d_opt, loss, gp_lambda, do_r1: bool, au
             for m, v in zip(moments, after):
                 m.copy_(v)
         if replay is not None:
-            key.set_state(replay)
-        g_loss = loss.g_loss(D(augment_fn(key, fake2, state)))
+            key_f.set_state(replay)
+        g_loss = loss.g_loss(D(augment_fn(key_f, fake2, state)))
         g_loss.backward()
         step_all_parameters(g_opt, G)
         D.requires_grad_(True)
@@ -163,3 +192,37 @@ def make_optimizers(args, G, D):
                              betas=betas, eps=1e-8)
     d_opt = torch.optim.Adam(D.parameters(), lr=args.lr, betas=betas, eps=1e-8)
     return g_opt, d_opt
+
+
+def build_training(args, device=None, seed=0, augment_fn=None, ada_enabled=False):
+    '''Everything one StyleGAN3 training step needs, from `seed`: the models
+    of `build_models` (bf16 unless `args.no_bf16`) in `assemble_training`.'''
+    device = resolve_device(device)
+    compute_dtype = torch.float32 if args.no_bf16 else torch.bfloat16
+    G, D, G_ema = build_models(args, compute_dtype, device, seed)
+    return assemble_training(args, G, D, G_ema, seed, augment_fn, ada_enabled)
+
+
+def assemble_training(args, G, D, G_ema, seed=0, augment_fn=None, ada_enabled=False):
+    '''The step around given models: returns a namespace with G, D, G_ema,
+    the optimizers, `state` (step count, generator on G's device, seeded
+    with `seed`), the two variants `steps[do_r1]`, `uses_r1(i)` and
+    `train_step(state, real, draws=None) -> metrics`, which picks the
+    additive-R1 variant where step % gp_every == 0. The augmentation is
+    DiffAugment with `args.policy` unless `augment_fn` is given.'''
+    g_opt, d_opt = make_optimizers(args, G, D)
+    state = init_state(next(G.parameters()).device, seed)
+    loss = NonSaturatingLoss()
+    policy = args.policy if augment_fn is None else ''
+    steps = {do_r1: build_train_step(G, D, G_ema, g_opt, d_opt, loss, args.gp_lambda, do_r1,
+                                     augment_fn, ada_enabled=ada_enabled, policy=policy)
+             for do_r1 in (False, True)}
+
+    def uses_r1(i):
+        return args.gp_lambda > 0 and i % args.gp_every == 0
+
+    def train_step(st, real, draws=None):
+        return steps[uses_r1(st['step'])](st, real, draws)
+
+    return SimpleNamespace(G=G, D=D, G_ema=G_ema, g_opt=g_opt, d_opt=d_opt, state=state,
+                           steps=steps, uses_r1=uses_r1, train_step=train_step)

@@ -57,7 +57,25 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      launches a forward, finite images, ms a forward, images/s, peak
      memory, one profiled forward; G_ema in f32 on the card against the
      CPU on 2 latents within 1e-3 of the output's scale;
-  9. print one JSON line of the kernels, the card line, and last
+  9. drive CIPS training at the recipe's 128px defaults (batch 32, bf16,
+     DiffAugment 'color,translation', the registry's 'torch'): a warm-up
+     step of each variant, one 16-step cycle with one additive-R1 step,
+     every hand-written kernel's launch count 0 over it, finite losses,
+     images/s, peak memory, one profiled step; then one `sample_fn`
+     forward with 41 bias_act launches; then one step in f32 on the card
+     against the CPU at batch 2 (`check_step_against_cpu`: losses and
+     buffers within 1e-3 of their scale, gradients within 1e-3 of their
+     norm plus twice the largest relative change of any gradient when the
+     CPU's z and reals move by 1e-6);
+ 10. drive FastGAN at 256px with the recipe's defaults (batch 32, bf16,
+     ema off): 2 warm-up steps, 16 timed steps with finite G, D and
+     reconstruction losses and no hand-written kernel launched, a finite
+     sample, one profiled step, the f32 step against the CPU;
+ 11. drive StyleGAN2 with its default DiffAugment at 256px (the recipe's
+     defaults, batch 32, bf16, pl_lambda 0): 1 warm-up step, 4 timed
+     adversarial steps, finite losses, no hand-written kernel launched,
+     one profiled step;
+ 12. print one JSON line of the kernels, the card line, and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 '''
@@ -87,6 +105,7 @@ D_K, G_K = 16, 8
 FLRELU_LAYERS = ((272, 128), (144, 128), (88, 256), (64, 512))
 FLRELU_BATCH, FLRELU_PAD, FLRELU_CLAMP = 16, 11, 256.0
 CIPS_FORWARDS = 8              # timed sampling forwards
+SG2_DA_STEPS = 4               # timed adversarial StyleGAN2 + DiffAugment steps
 #: bias_act's calls in one CIPS sampling forward at the recipe's defaults:
 #: (shape, dtype, activation, gain, calls) for the 15 StyleLayers, the 4
 #: mapping layers, the first StyleLayer's affine, and the other 14 + 7 affines
@@ -1084,6 +1103,262 @@ def check_cips_against_cpu(G_ema, args, dev, batch=2, rtol=1e-3):
         raise AssertionError(f'CIPS images on the card disagree with the CPU: {err} vs {scale}')
 
 
+# --------------------------------------- the recipes that train with DiffAugment
+
+def _reset_launches():
+    from animeface_tpu_torch.nnutils import ada_geometry_cuda as agc
+    from animeface_tpu_torch.ops import cuda_kernels as ck
+    ck.bias_act_launches = ck.filtered_lrelu_launches = 0
+    agc.fwd_launches = agc.bwd_launches = agc.line_fwd_launches = agc.line_bwd_launches = 0
+
+
+def _launches():
+    '''(bias_act, filtered_lrelu, two-pass fwd, bwd, line fwd, bwd) launches.'''
+    from animeface_tpu_torch.nnutils import ada_geometry_cuda as agc
+    from animeface_tpu_torch.ops import cuda_kernels as ck
+    return (ck.bias_act_launches, ck.filtered_lrelu_launches, agc.fwd_launches,
+            agc.bwd_launches, agc.line_fwd_launches, agc.line_bwd_launches)
+
+
+def _check_no_launches(path):
+    counts = _launches()
+    if any(counts):
+        raise AssertionError(f'{path} launched hand-written kernels (bias_act, filtered_lrelu, '
+                             f'two-pass fwd/bwd, line fwd/bwd): {counts}')
+
+
+def _to(obj, device):
+    '''Tensors in nested dicts, lists and tuples, on `device`.'''
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to(v, device) for v in obj)
+    return obj
+
+
+def _real_images(args, dev, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand((args.batch_size, args.image_channels, args.image_size, args.image_size),
+                      generator=g, device=dev) * 2 - 1
+
+
+def _cycle(label, run, real, steps, card, losses_of):
+    '''`steps` calls of run.train_step with every launch count set to 0
+    just before and read just after: finite losses, no hand-written kernel
+    launched (training runs the registry's 'torch'); then one profiled
+    step. Returns the cycle's wall s.'''
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(losses_of(run.train_step(run.state, real)))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _check_no_launches(label)
+    losses = [[float(v) for v in ls] for ls in losses]
+    if not all(np.isfinite(v) for ls in losses for v in ls):
+        raise AssertionError(f'{label}: non-finite loss: {losses}')
+    B, size = real.shape[0], real.shape[-1]
+    print(f'{label} losses per step:', json.dumps([[round(v, 5) for v in ls] for ls in losses]))
+    print(f'{label}: {steps} steps, batch {B}, {size}px, full width, bf16: {dt:.3f} s, '
+          f'{B * steps / dt:.2f} images/s on {card}')
+    print(f'{label} peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    profile_step(label, run.train_step, run.state, real)
+    return dt
+
+
+def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev, batch=2,
+                           rtol=1e-3, nudge=1e-6, max_nudged=0.1):
+    '''One training step at full width in f32 on the card (TF32 off) and on
+    the CPU, from `run`'s weights and buffers and the same draws (made on
+    the CPU). Plain SGD on both sides, so the G phase sees the same D (an
+    Adam step with beta1 = 0 is about lr * sign(g) and would turn a
+    last-bit difference of a near-zero gradient into 2 lr).
+    The losses and every buffer after the step (spectral norm's u, running
+    statistics, moments) must agree to `rtol` of their largest magnitude.
+    A gradient of such a step moves by more than that when its inputs move
+    at f32 rounding (leaky ReLU inputs within rounding of 0 take the other
+    slope; BatchNorm's E[x^2] - E[x]^2 cancels), and by how much varies
+    from tensor to tensor and draw to draw. So the CPU runs the step a
+    second time with the reals and z moved by `nudge` * N(0, 1) (about 8
+    ulps of a value near 1); S is the largest L2 change, relative to its
+    norm, that this makes to any gradient (at most `max_nudged`, or the
+    comparison would say nothing), and every gradient must agree in L2 to
+    (`rtol` + 2 S) of its norm.'''
+    f32 = SimpleNamespace(**dict(vars(args), no_bf16=True, batch_size=batch))
+    cpu = torch.device('cpu')
+    real = _real_images(f32, cpu, seed=5)
+    g = torch.Generator().manual_seed(7)
+
+    def nudged(t):
+        return t + nudge * torch.randn(t.shape, generator=g)
+
+    outs = []
+    t0 = time.perf_counter()
+    for device, moved in ((dev, False), (cpu, False), (cpu, True)):
+        G, D, G_ema = build_models(f32, device)
+        for mine, theirs in ((G, run.G), (D, run.D), (G_ema, run.G_ema)):
+            mine.load_state_dict(theirs.state_dict())
+        state = dict(step=0, generator=torch.Generator(device=device).manual_seed(0))
+        step = make_step(G, D, G_ema, torch.optim.SGD(G.parameters(), lr=1e-3),
+                         torch.optim.SGD(D.parameters(), lr=1e-3))
+        draws = draw(G, real, f32)
+        images = real
+        if moved:
+            images, draws['z'] = nudged(real), nudged(draws['z'])
+        metrics = step(state, images.to(device), _to(draws, device))
+        if isinstance(metrics, tuple):
+            metrics = metrics[0]
+        got = {f'loss {k}': v.detach().cpu() for k, v in metrics.items()}
+        for name, module in (('G', G), ('D', D)):
+            got.update({f'grad {name}.{n}': p.grad.cpu() for n, p in module.named_parameters()})
+            got.update({f'buffer {name}.{n}': b.cpu() for n, b in module.named_buffers()})
+        outs.append({k: v.double() for k, v in got.items()})
+        del G, D, G_ema, step
+    card, want, moved = outs
+
+    def rel_l2(a, key):
+        return float((a[key] - want[key]).norm()) / max(float(want[key].norm()), 1e-30)
+
+    grads = [k for k in want if k.startswith('grad')]
+    nudged_worst = max((rel_l2(moved, k), k) for k in grads)
+    if nudged_worst[0] > max_nudged:
+        raise AssertionError(f'{label}: a {nudge} move of the inputs moves {nudged_worst[1]} by '
+                             f'{nudged_worst[0]:.3e} of its norm on the CPU: too sensitive to '
+                             'hold the card against')
+    tol = rtol + 2 * nudged_worst[0]
+    worst = {'loss/buffer max': (0.0, ''), 'grad l2': (0.0, ''), 'nudged grad l2 (S)': nudged_worst}
+    bad = []
+    for key, w in want.items():
+        if key.startswith('grad'):
+            err = rel_l2(card, key)
+            worst['grad l2'] = max(worst['grad l2'], (err, key))
+            ok = err <= tol
+        else:
+            rel = float((card[key] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            worst['loss/buffer max'] = max(worst['loss/buffer max'], (rel, key))
+            ok = rel <= rtol
+        if not (ok and bool(torch.isfinite(card[key]).all())):
+            bad.append(key)
+    print(f'{label} f32 step, card vs CPU, batch {batch}, {len(want)} tensors; worst '
+          + ', '.join(f'{k} {v[0]:.3e} ({v[1]})' for k, v in worst.items())
+          + f'; gradient tol {tol:.3e} of the norm; {time.perf_counter() - t0:.2f} s')
+    if bad:
+        raise AssertionError(f'{label}: on the card, {len(bad)} tensors disagree with the CPU: '
+                             + ', '.join(bad[:12]))
+
+
+def run_cips_train_path(dev, card, **overrides):
+    '''CIPS training at the recipe's 128px defaults (`overrides` change
+    them), full width, bf16: warm-up (the R1 variant at step 0, the plain
+    one at step 1), one 16-step cycle with no hand-written kernel launched,
+    then one `sample_fn` forward: 41 bias_act launches. Then the f32 step
+    on the card against the CPU.'''
+    from animeface_tpu_torch.implementations.CIPS import utils as cu
+    from animeface_tpu_torch.implementations.StyleGAN3.utils import draw_step_inputs
+    from animeface_tpu_torch.nnutils.loss import NonSaturatingLoss
+
+    args = cu.default_args(**overrides)
+    print('CIPS train args:', json.dumps(vars(args)))
+    run = cu.build_training(args, device=dev, seed=0)
+    real = _real_images(args, dev)
+    t0 = time.perf_counter()
+    for _ in range(2):                        # step 0: R1, step 1: plain
+        run.train_step(run.state, real)
+    torch.cuda.synchronize()
+    print(f'CIPS train warm-up (2 steps, one per variant): {time.perf_counter() - t0:.2f} s')
+    first = run.state['step']
+    variants = [run.uses_r1(i) for i in range(first, first + ADA_STEPS)]
+    if sum(variants) != 1:
+        raise AssertionError(f'expected one R1 step in the CIPS cycle, got {variants}')
+    _cycle('CIPS train', run, real, ADA_STEPS, card, lambda m: (m['g'], m['d']))
+    print(f'CIPS train: R1 at cycle step {variants.index(True) + 1}')
+    _reset_launches()
+    images = run.sample_fn()
+    torch.cuda.synchronize()
+    counts = _launches()
+    if counts != (CIPS_BIAS_ACT_PER_FORWARD, 0, 0, 0, 0, 0) \
+            or not bool(torch.isfinite(images).all()):
+        raise AssertionError(f'CIPS sample_fn after training: launches {counts} (want '
+                             f'{CIPS_BIAS_ACT_PER_FORWARD} bias_act), finite '
+                             f'{bool(torch.isfinite(images).all())}')
+    print(f'CIPS sample_fn after training: {counts[0]} bias_act launches, finite images '
+          f'{tuple(images.shape)}')
+    check_step_against_cpu(
+        'CIPS', lambda a, d: cu.build_models(a, d),
+        lambda G, D, G_ema, g_opt, d_opt: cu.build_train_step(
+            G, D, G_ema, g_opt, d_opt, NonSaturatingLoss(), args.gp_lambda, False,
+            policy=args.policy),
+        lambda G, real, a: draw_step_inputs(G, real, torch.Generator().manual_seed(6),
+                                            a.policy),
+        args, run, dev)
+
+
+def _fastgan_losses(out):
+    metrics, recons = out
+    recon, small, recon_part, img_part = recons
+    recon_loss = ((recon - small) ** 2).mean() + ((recon_part - img_part) ** 2).mean()
+    return metrics['G'], metrics['D'], recon_loss
+
+
+def run_fastgan_path(dev, card, **overrides):
+    '''FastGAN at the BASELINE config's 256px with the recipe's defaults
+    (`overrides` change them), full width, bf16, ema off: 2 warm-up steps,
+    16 timed steps (finite G, D and reconstruction losses, no hand-written
+    kernel launched), a finite sample; then the f32 step on the card
+    against the CPU.'''
+    from animeface_tpu_torch.implementations.FastGAN import utils as fu
+    from animeface_tpu_torch.nnutils.loss import HingeLoss
+
+    args = fu.default_args(**overrides)
+    print('FastGAN args:', json.dumps(vars(args)))
+    run = fu.build_training(args, device=dev, seed=0)
+    real = _real_images(args, dev)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        run.train_step(run.state, real)
+    torch.cuda.synchronize()
+    print(f'FastGAN warm-up (2 steps): {time.perf_counter() - t0:.2f} s')
+    _cycle('FastGAN', run, real, ADA_STEPS, card, _fastgan_losses)
+    images = run.sample_fn()
+    size = args.image_size
+    if images.shape != (args.num_test, args.image_channels, size, size) \
+            or not bool(torch.isfinite(images).all()):
+        raise AssertionError('FastGAN samples are not finite or have the wrong shape')
+    check_step_against_cpu(
+        'FastGAN', lambda a, d: fu.build_models(a, d),
+        lambda G, D, G_ema, g_opt, d_opt: fu.build_train_step(
+            G, D, G_ema, g_opt, d_opt, HingeLoss(), args.policy, args.ema),
+        lambda G, real, a: fu.draw_step_inputs(G, real, torch.Generator().manual_seed(6),
+                                               a.policy),
+        args, run, dev)
+
+
+def run_stylegan2_diffaugment_path(dev, card, **overrides):
+    '''StyleGAN2 with its default DiffAugment at 256px, the recipe's
+    defaults otherwise (pl_lambda 0; `overrides` change them), full width,
+    bf16: 1 warm-up step and 4 timed adversarial steps, finite losses, no
+    hand-written kernel launched.'''
+    from animeface_tpu_torch.implementations.StyleGAN2 import utils as su
+
+    args = su.default_args(**dict(dict(image_size=IMAGE), **overrides))
+    print('StyleGAN2 + DiffAugment args:', json.dumps(vars(args)))
+    run = su.build_training(args, device=dev, seed=0)
+    real = _real_images(args, dev)
+    t0 = time.perf_counter()
+    run.train_step(run.state, real)
+    torch.cuda.synchronize()
+    print(f'StyleGAN2 + DiffAugment warm-up (1 step): {time.perf_counter() - t0:.2f} s')
+    first = run.state['step']
+    if any(any(run.variant(i)) for i in range(first, first + SG2_DA_STEPS)):
+        raise AssertionError('the timed StyleGAN2 + DiffAugment steps must be adversarial')
+    _cycle('StyleGAN2 + DiffAugment', run, real, SG2_DA_STEPS, card,
+           lambda m: (m['G'], m['D']))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this run needs one GPU', file=sys.stderr)
@@ -1128,6 +1403,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     bias_act_entry['launches'] = run_cips_path(dev, card)
     kernels += [bias_act_entry, flrelu_entry]
+    for path in (run_cips_train_path, run_fastgan_path, run_stylegan2_diffaugment_path):
+        torch.cuda.empty_cache()
+        path(dev, card)
 
     print(json.dumps({'kernels': kernels}))
     print(card)

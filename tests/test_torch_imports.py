@@ -26,6 +26,7 @@ print(' '.join(mods))
 #: modules that must be among those the guard imported
 REQUIRED = (
     'animeface_tpu_torch.nnutils.ada_geometry_cuda',
+    'animeface_tpu_torch.nnutils.diffaugment',
     'animeface_tpu_torch.ops.activations',
     'animeface_tpu_torch.ops.bias_act',
     'animeface_tpu_torch.ops.conv2d_resample',
@@ -38,6 +39,8 @@ REQUIRED = (
     'animeface_tpu_torch.implementations.StyleGAN3.model',
     'animeface_tpu_torch.implementations.StyleGAN3.utils',
     'animeface_tpu_torch.implementations.ADA.utils',
+    'animeface_tpu_torch.implementations.FastGAN.model',
+    'animeface_tpu_torch.implementations.FastGAN.utils',
 )
 
 
