@@ -1,1 +1,3 @@
-'''The ADA recipe (StyleGAN3 + AugmentPipe) in PyTorch: its training step.'''
+'''The ADA recipe (StyleGAN3 + AugmentPipe) in PyTorch: its training step and CLI.'''
+
+from animeface_tpu_torch.implementations.ADA.utils import main  # noqa: F401

@@ -1,33 +1,37 @@
-'''The ADA recipe's training step in PyTorch: the StyleGAN3 backbone with the
-18-knob AugmentPipe on D's inputs and the adaptive-p controller.
+'''The ADA recipe in PyTorch: the StyleGAN3 backbone with the 18-knob
+AugmentPipe on D's inputs and the adaptive-p controller, and its CLI.
 
-Counterpart of the step assembly in `animeface_tpu/implementations/ADA/
-utils.py:train` (its lines 25-55): the models, optimizers and controller
-state, `augment_fn` through `make_ada_pipe()` (the default ADA knobs) at
-the controller's p, and the choice of the additive-R1 variant on steps
-where step % gp_every == 0 (the others take the plain variant). The CLI,
-checkpoints, the data loader and `run_training` are not ported yet.
+Counterpart of `animeface_tpu/implementations/ADA/utils.py`: the step
+assembly of `train` (`build_training`: the models, optimizers and
+controller state, `augment_fn` through `make_ada_pipe()`, the default ADA
+knobs, at the controller's p, and the additive-R1 variant on steps where
+step % gp_every == 0), `train` (StyleGAN3's `run_recipe`; the controller
+is checkpointed with the step's state) and `main`.
 '''
 
 from __future__ import annotations
 
-from types import SimpleNamespace
-
+from animeface_tpu_torch.dataset import build_loader
 from animeface_tpu_torch.implementations.StyleGAN3 import utils as sg3
+from animeface_tpu_torch.nnutils.accelerate import Accelerator
 from animeface_tpu_torch.nnutils.ada import ada_init_state, make_ada_pipe
+from animeface_tpu_torch.nnutils.trainer import default_max_iters
+from animeface_tpu_torch.utils import add_args, save_args
+from animeface_tpu_torch.utils.argument import recipe_defaults
 
-#: the ADA recipe's CLI defaults: StyleGAN3's (without DiffAugment's
-#: policy) and the controller's
-ADA_DEFAULTS = dict({k: v for k, v in sg3.STYLEGAN3_DEFAULTS.items() if k != 'policy'},
-                    ada_interval=4, ada_target_kimg=500, ada_threshold=0.6)
+#: the recipe's flags: StyleGAN3's (without DiffAugment's policy) and the
+#: controller's
+ADA_ARGS = dict(
+    **sg3.STYLEGAN3_ARGS,
+    ada_interval=[4, 'p update interval'],
+    ada_target_kimg=[500, 'target kimg for p ramp'],
+    ada_threshold=[0.6, 'sign(D(real)) threshold'],
+)
 
 
 def default_args(**overrides):
-    '''The recipe's defaults as an argument namespace, with overrides.'''
-    unknown = set(overrides) - set(ADA_DEFAULTS)
-    if unknown:
-        raise TypeError(f'unknown ADA arguments: {sorted(unknown)}')
-    return SimpleNamespace(**dict(ADA_DEFAULTS, **overrides))
+    '''The recipe's parsed defaults as an argument namespace, with overrides.'''
+    return recipe_defaults('ADA', ADA_ARGS, overrides)
 
 
 def build_training(args, device=None, seed=0):
@@ -46,3 +50,22 @@ def build_training(args, device=None, seed=0):
                                       args.ada_threshold, device=run.state['generator'].device)
     run.pipe = pipe
     return run
+
+
+def train(args, max_iters, loader, name='ADA'):
+    accel = Accelerator(bf16=not args.no_bf16)
+    run = build_training(args, accel.device, seed=args.seed)
+    return sg3.run_recipe(run, args, accel, max_iters, loader, name)
+
+
+def main(parser):
+    parser = add_args(parser, ADA_ARGS)
+    args = parser.parse_args()
+    # the reference's recipe-level `logfile` IS its Status log file
+    if args.logfile and not args.log_file:
+        args.log_file = args.logfile
+    save_args(args)
+
+    loader = build_loader(args, 'image')
+    max_iters = default_max_iters(args, loader)
+    train(args, max_iters, loader)

@@ -1,8 +1,9 @@
-'''StyleGAN2(-ADA) training step in PyTorch.
+'''StyleGAN2(-ADA) training in PyTorch: the step and the recipe's CLI.
 
 Counterpart of `animeface_tpu/implementations/StyleGAN2/utils.py`
-(`pl_lengths`, `build_train_step`, `build_models`, `make_optimizers`, and
-the step assembly of `train`: `build_training`). Semantics kept:
+(`STYLEGAN2_ARGS`, `pl_lengths`, `build_train_step`, `build_models`,
+`make_optimizers`, `train`, `main`; the step assembly of `train` is
+`build_training`). Semantics kept:
   * lazy regularization REPLACES the adversarial loss on penalty steps: D
     does R1 only every d_k steps, G path length only every g_k steps;
   * Adam lr/beta rescale by k/(k+1) when a penalty is on;
@@ -27,12 +28,18 @@ import numpy as np
 import torch
 
 from animeface_tpu_torch import resolve_device
+from animeface_tpu_torch.dataset import build_loader
 from animeface_tpu_torch.implementations.StyleGAN2.model import Generator, Discriminator
+from animeface_tpu_torch.nnutils.accelerate import Accelerator
 from animeface_tpu_torch.nnutils.ada import ada_update_p, ada_tick
 from animeface_tpu_torch.nnutils.diffaugment import diff_augment, draw_diff_augment
 from animeface_tpu_torch.nnutils.loss import NonSaturatingLoss, r1_regularizer
 from animeface_tpu_torch.nnutils.rng import make_generator, sample_nnoise
-from animeface_tpu_torch.nnutils.training import step_all_parameters, update_ema
+from animeface_tpu_torch.nnutils.trainer import (
+    default_max_iters, host_step_counter, run_training)
+from animeface_tpu_torch.nnutils.training import step_all_parameters, train_state, update_ema
+from animeface_tpu_torch.utils import add_args, save_args
+from animeface_tpu_torch.utils.argument import recipe_defaults
 
 
 def pl_lengths(G, w, noise, pl_noise):
@@ -46,22 +53,34 @@ def pl_lengths(G, w, noise, pl_noise):
     return torch.sqrt((grads * grads).sum(dim=1) + 1e-12)
 
 
-#: the StyleGAN2 recipe's CLI defaults (JAX `STYLEGAN2_ARGS`), and the
-#: global ones it trains with (`utils/argument.py`: image 128, batch 32).
-#: The port's D groups its minibatch stddev 'strided' only.
-STYLEGAN2_DEFAULTS = dict(
-    image_size=128, batch_size=32, image_channels=3, style_dim=512, channels=32,
-    max_channels=512, block_num_conv=2, map_num_layers=8, map_lr=0.01,
-    disable_map_norm=False, mbsd_groups=4, lr=0.001, beta1=0., beta2=0.99, g_k=8, d_k=16,
-    r1_lambda=10., pl_lambda=0., policy='color,translation', no_bf16=False)
+#: the StyleGAN2 recipe's flags, as the JAX `STYLEGAN2_ARGS`: with the
+#: global flags (`utils/argument.py`: image 128, batch 32) the recipe's
+#: defaults. The port's D groups its minibatch stddev 'strided' only.
+STYLEGAN2_ARGS = dict(
+    image_channels=[3, 'number of channels for the generated image'],
+    style_dim=[512, 'style feature dimension'],
+    channels=[32, 'channel width multiplier'],
+    max_channels=[512, 'maximum channels'],
+    block_num_conv=[2, 'conv layers per residual block'],
+    map_num_layers=[8, 'layers in the mapping network'],
+    map_lr=[0.01, 'learning-rate multiplier for the mapping network'],
+    disable_map_norm=[False, 'disable pixel norm in mapping network'],
+    mbsd_groups=[4, 'groups for minibatch stddev'],
+    mbsd_grouping=['strided', 'minibatch-stddev grouping: strided (the only one ported)'],
+    lr=[0.001, 'learning rate'],
+    beta1=[0., 'beta1'],
+    beta2=[0.99, 'beta2'],
+    g_k=[8, 'lazy regularization: path length every g_k iters'],
+    d_k=[16, 'lazy regularization: R1 every d_k iters'],
+    r1_lambda=[10., 'lambda for r1'],
+    pl_lambda=[0., 'lambda for path length'],
+    policy=['color,translation', 'policy for DiffAugment'],
+)
 
 
 def default_args(**overrides):
-    '''The recipe's defaults as an argument namespace, with overrides.'''
-    unknown = set(overrides) - set(STYLEGAN2_DEFAULTS)
-    if unknown:
-        raise TypeError(f'unknown StyleGAN2 arguments: {sorted(unknown)}')
-    return SimpleNamespace(**dict(STYLEGAN2_DEFAULTS, **overrides))
+    '''The recipe's parsed defaults as an argument namespace, with overrides.'''
+    return recipe_defaults('StyleGAN2', STYLEGAN2_ARGS, overrides)
 
 
 def draw_step_inputs(G, real, generator, policy=''):
@@ -84,7 +103,7 @@ def draw_step_inputs(G, real, generator, policy=''):
 def build_train_step(G, D, G_ema, g_opt, d_opt, loss, r1_lambda, pl_lambda,
                      d_k, g_k, ema_decay, do_r1: bool, do_pl: bool,
                      augment_fn=None, ada_enabled: bool = False,
-                     policy: str = STYLEGAN2_DEFAULTS['policy']):
+                     policy: str = STYLEGAN2_ARGS['policy'][0]):
     '''One iteration (D phase, G phase, EMA) for one (do_r1, do_pl) variant.
 
     `augment_fn(images, state) -> images` runs on the D input path (the ADA
@@ -154,6 +173,9 @@ def build_train_step(G, D, G_ema, g_opt, d_opt, loss, r1_lambda, pl_lambda,
 def build_models(args, compute_dtype=torch.float32, device=None, seed=0):
     '''G, D and the EMA copy of G on `device` (default `cuda`), weights
     drawn from `seed`.'''
+    if getattr(args, 'mbsd_grouping', 'strided') != 'strided':
+        raise NotImplementedError(f'mbsd_grouping={args.mbsd_grouping!r}: the port groups '
+                                  "the minibatch stddev 'strided' only")
     device = resolve_device(device)
     g = torch.Generator().manual_seed(int(seed))
     G = Generator(
@@ -214,3 +236,42 @@ def build_training(args, device=None, seed=0):
 
     return SimpleNamespace(G=G, D=D, G_ema=G_ema, g_opt=g_opt, d_opt=d_opt, state=state,
                            steps=steps, variant=variant, train_step=train_step)
+
+
+def train(args, max_iters, loader, name='StyleGAN2'):
+    '''Train from `args` on `loader` for `max_iters` steps through
+    `run_training`: the step's variant from the host step index, samples
+    of G_ema on 16 fixed latents (drawn from `args.seed`) with fixed noise,
+    G_ema's state dict as `G_<step>.pt`.'''
+    accel = Accelerator(bf16=not args.no_bf16)
+    run = build_training(args, accel.device, seed=args.seed)
+    next_index = host_step_counter()
+
+    def train_step(state, batch):
+        i = next_index(state['run'])
+        return state, run.steps[run.variant(i)](state['run'], batch)
+
+    const_z = torch.randn((16, args.style_dim),
+                          generator=torch.Generator().manual_seed(args.seed)).to(accel.device)
+
+    @torch.no_grad()
+    def sample_fn(state):
+        images, _ = state['G_ema'](const_z, noise=make_generator(args.seed, accel.device))
+        return images
+
+    return run_training(
+        name=name, args=args, accel=accel, state=train_state(run), loader=loader,
+        train_step=train_step, sample_fn=sample_fn,
+        max_iters=max_iters, save_interval=args.save,
+        ema_params_path=lambda s: s['G_ema'].state_dict(),
+    )
+
+
+def main(parser):
+    parser = add_args(parser, STYLEGAN2_ARGS)
+    args = parser.parse_args()
+    save_args(args)
+
+    loader = build_loader(args, 'image')
+    max_iters = default_max_iters(args, loader)
+    train(args, max_iters, loader)

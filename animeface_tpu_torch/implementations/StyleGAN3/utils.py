@@ -1,8 +1,9 @@
-'''StyleGAN3 training step in PyTorch.
+'''StyleGAN3 training in PyTorch: the step and the recipe's CLI.
 
 Counterpart of `animeface_tpu/implementations/StyleGAN3/utils.py`
-(`build_train_step`, `build_models`, `init_state`, `make_optimizers`, and
-the step assembly of `train`: `build_training`). Semantics kept:
+(`STYLEGAN3_MODEL_ARGS`, `STYLEGAN3_ARGS`, `build_train_step`,
+`build_models`, `init_state`, `make_optimizers`, `train`, `main`; the step
+assembly of `train` is `build_training`). Semantics kept:
   * non-saturating loss with ADDITIVE R1 (times gp_lambda) on R1 steps,
     taken on the raw reals; the caller picks the variant per step;
   * the augmentation (by default DiffAugment with the recipe's policy) on
@@ -31,32 +32,62 @@ from types import SimpleNamespace
 import torch
 
 from animeface_tpu_torch import resolve_device
+from animeface_tpu_torch.dataset import build_loader
 from animeface_tpu_torch.implementations.StyleGAN3.model import Generator, Discriminator
+from animeface_tpu_torch.nnutils.accelerate import Accelerator
 from animeface_tpu_torch.nnutils.ada import ada_update_p
 from animeface_tpu_torch.nnutils.diffaugment import diff_augment, draw_diff_augment
 from animeface_tpu_torch.nnutils.loss import NonSaturatingLoss, r1_regularizer
 from animeface_tpu_torch.nnutils.rng import make_generator, sample_nnoise
-from animeface_tpu_torch.nnutils.training import step_all_parameters, update_ema
+from animeface_tpu_torch.nnutils.trainer import (
+    default_max_iters, host_step_counter, run_training)
+from animeface_tpu_torch.nnutils.training import step_all_parameters, train_state, update_ema
+from animeface_tpu_torch.utils import add_args, save_args
+from animeface_tpu_torch.utils.argument import recipe_defaults
 
-#: the StyleGAN3 recipe's CLI defaults (JAX `STYLEGAN3_ARGS` and the
-#: recipe's DiffAugment `policy`), and the global ones it trains with
-#: (`utils/argument.py`: image 128, batch 32)
-STYLEGAN3_DEFAULTS = dict(
-    image_size=128, batch_size=32, image_channels=3, latent_dim=512, style_dim=512,
-    num_layers=14, map_num_layers=2, channels=32, max_channels=512, kernel_size=3,
-    no_pixel_norm=False, output_scale=0.25, margin_size=10, first_cutoff=2.,
-    first_stopband=2 ** 2.1, last_stopband_rel=2 ** 0.3, d_channels=32,
-    d_max_channels=512, mbsd_group_size=4, mbsd_channels=1, bottom=4,
-    gaus_filter_size=4, lr=0.0025, map_lr_scale=0.01, betas=(0., 0.99),
-    gp_lambda=3., gp_every=16, policy='color,translation', no_bf16=False)
+#: the backbone's flags, shared with the ADA recipe (JAX `STYLEGAN3_MODEL_ARGS`)
+STYLEGAN3_MODEL_ARGS = dict(
+    image_channels=[3, 'number of image channels'],
+    latent_dim=[512, 'latent dimension'],
+    style_dim=[512, 'style dimension'],
+    num_layers=[14, 'number of layers in G'],
+    map_num_layers=[2, 'number of layers in mapping network'],
+    channels=[32, 'channel base'],
+    max_channels=[512, 'maximum channel width'],
+    kernel_size=[3, 'kernel size. 3'],
+    no_pixel_norm=[False, 'disable pixel norm on z'],
+    output_scale=[0.25, 'scale output tensor with'],
+    margin_size=[10, 'bigger size to work on'],
+    first_cutoff=[2., 'first cutoff'],
+    first_stopband=[2 ** 2.1, 'first stopband'],
+    last_stopband_rel=[2 ** 0.3, 'last relative stopband'],
+    d_channels=[32, 'channel base for D'],
+    d_max_channels=[512, 'maximum channels in D'],
+    mbsd_group_size=[4, 'minibatch stddev group size'],
+    mbsd_channels=[1, 'minibatch stddev channels'],
+    bottom=[4, 'D bottom resolution'],
+    gaus_filter_size=[4, 'filter size in D'],
+)
+
+#: the recipe's flags besides DiffAugment's policy (JAX `STYLEGAN3_ARGS`);
+#: with the global flags (`utils/argument.py`: image 128, batch 32) and
+#: `POLICY_ARG` the StyleGAN3 recipe's defaults
+STYLEGAN3_ARGS = dict(
+    **STYLEGAN3_MODEL_ARGS,
+    num_test=[16, 'number of images for eval'],
+    lr=[0.0025, 'learning rate'],
+    map_lr_scale=[0.01, 'lr scale for the mapping network'],
+    betas=[[0., 0.99], 'betas'],
+    gp_lambda=[3., 'lambda for r1'],
+    gp_every=[16, 'R1 every N iters'],
+    logfile=[str, 'log file'],
+)
+POLICY_ARG = dict(policy=['color,translation', 'policy for DiffAugment'])
 
 
 def default_args(**overrides):
-    '''The recipe's defaults as an argument namespace, with overrides.'''
-    unknown = set(overrides) - set(STYLEGAN3_DEFAULTS)
-    if unknown:
-        raise TypeError(f'unknown StyleGAN3 arguments: {sorted(unknown)}')
-    return SimpleNamespace(**dict(STYLEGAN3_DEFAULTS, **overrides))
+    '''The recipe's parsed defaults as an argument namespace, with overrides.'''
+    return recipe_defaults('StyleGAN3', dict(STYLEGAN3_ARGS, **POLICY_ARG), overrides)
 
 
 def draw_step_inputs(G, real, generator, policy=None):
@@ -78,7 +109,7 @@ def _generator_state(key):
 
 def build_train_step(G, D, G_ema, g_opt, d_opt, loss, gp_lambda, do_r1: bool,
                      augment_fn=None, ema_decay: float = 0.999, ada_enabled: bool = False,
-                     policy: str = STYLEGAN3_DEFAULTS['policy']):
+                     policy: str = POLICY_ARG['policy'][0]):
     '''One iteration (D phase, G phase, EMA) for one variant (do_r1).
 
     `augment_fn(key, images, state) -> images` runs on D's inputs (the ADA
@@ -226,3 +257,48 @@ def assemble_training(args, G, D, G_ema, seed=0, augment_fn=None, ada_enabled=Fa
 
     return SimpleNamespace(G=G, D=D, G_ema=G_ema, g_opt=g_opt, d_opt=d_opt, state=state,
                            steps=steps, uses_r1=uses_r1, train_step=train_step)
+
+
+def run_recipe(run, args, accel, max_iters, loader, name):
+    '''`run_training` around a `build_training` namespace (shared with the
+    ADA recipe): the variant from the host step index, samples of G_ema
+    (with its moments) on `num_test` fixed latents drawn from `args.seed`,
+    G_ema's state dict (with the moments) as `G_<step>.pt`.'''
+    next_index = host_step_counter()
+
+    def train_step(state, batch):
+        i = next_index(state['run'])
+        return state, run.steps[run.uses_r1(i)](state['run'], batch)
+
+    const_z = torch.randn((args.num_test, args.latent_dim),
+                          generator=torch.Generator().manual_seed(args.seed)).to(accel.device)
+
+    @torch.no_grad()
+    def sample_fn(state):
+        return state['G_ema'](const_z)
+
+    return run_training(
+        name=name, args=args, accel=accel, state=train_state(run), loader=loader,
+        train_step=train_step, sample_fn=sample_fn,
+        max_iters=max_iters, save_interval=args.save,
+        ema_params_path=lambda s: s['G_ema'].state_dict(),
+    )
+
+
+def train(args, max_iters, loader, name='StyleGAN3'):
+    accel = Accelerator(bf16=not args.no_bf16)
+    run = build_training(args, accel.device, seed=args.seed)
+    return run_recipe(run, args, accel, max_iters, loader, name)
+
+
+def main(parser):
+    parser = add_args(parser, dict(STYLEGAN3_ARGS, **POLICY_ARG))
+    args = parser.parse_args()
+    # the reference's recipe-level `logfile` IS its Status log file
+    if args.logfile and not args.log_file:
+        args.log_file = args.logfile
+    save_args(args)
+
+    loader = build_loader(args, 'image')
+    max_iters = default_max_iters(args, loader)
+    train(args, max_iters, loader)

@@ -23,3 +23,11 @@ def step_all_parameters(opt: torch.optim.Optimizer, module: nn.Module) -> None:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     opt.step()
+
+
+def train_state(run) -> dict:
+    '''The training state of a `build_training` namespace, as `run_training`
+    and the checkpoints take it: the modules, the optimizers and the step's
+    own dict (step count, generator, controller) under 'run'.'''
+    return dict(G=run.G, D=run.D, G_ema=run.G_ema, g_opt=run.g_opt, d_opt=run.d_opt,
+                run=run.state)

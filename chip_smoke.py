@@ -75,7 +75,22 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      defaults, batch 32, bf16, pl_lambda 0): 1 warm-up step, 4 timed
      adversarial steps, finite losses, no hand-written kernel launched,
      one profiled step;
- 12. print one JSON line of the kernels, the card line, and last
+ 12. drive the training CLI, `python -m animeface_tpu_torch <recipe>
+     --synthetic-data`, in-process through `__main__.main` with the result
+     directories in a temporary ANIMEFACE_IMPLEMENTATIONS_DIR, at the
+     recipes' defaults (full width, batch 32, bf16): ADA at 128px for 20
+     steps saving every 10, then `--resume` from its checkpoint directory
+     to 24: 6 line-pass forward and 2 backward launches a step (120/40)
+     and no other hand-written kernel; StyleGAN2 at 256px for 17 steps
+     saving every 16 (the R1 step at 16), then a resume to 18: no
+     hand-written kernel. Each: the artifacts (args-*.json, the grids,
+     G_<step>.pt, checkpoints with finite losses), every step's variant
+     from its index (lazy R1 for StyleGAN2, additive R1 for ADA) in both
+     runs, the resumed run from the restored step with the checkpoint's
+     controller state; images/s over a window of steps without a snapshot
+     or an R1 step beside the direct run's, the loader's time a batch,
+     each checkpoint's seconds and MiB;
+ 13. print one JSON line of the kernels, the card line, and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 '''
@@ -675,7 +690,7 @@ def run_ada_path(dev, card, **overrides):
     for name, do_r1 in (('ADA plain', False), ('ADA r1', True)):
         profile_step(name, run.steps[do_r1], state, real)
     check_models_against_cpu(run, args, dev)
-    return launches
+    return launches, args.batch_size * ADA_STEPS / dt
 
 
 def check_models_against_cpu(run, args, dev, batch=2, rtol=1e-3):
@@ -1355,14 +1370,199 @@ def run_stylegan2_diffaugment_path(dev, card, **overrides):
     first = run.state['step']
     if any(any(run.variant(i)) for i in range(first, first + SG2_DA_STEPS)):
         raise AssertionError('the timed StyleGAN2 + DiffAugment steps must be adversarial')
-    _cycle('StyleGAN2 + DiffAugment', run, real, SG2_DA_STEPS, card,
-           lambda m: (m['G'], m['D']))
+    dt = _cycle('StyleGAN2 + DiffAugment', run, real, SG2_DA_STEPS, card,
+                lambda m: (m['G'], m['D']))
+    return args.batch_size * SG2_DA_STEPS / dt
+
+
+# ------------------------------------------------------------ the training CLI
+
+#: (recipe, flags, steps, save interval, steps after the resume, timed window
+#: [first, last) of step indices: no snapshot and no R1 step inside)
+CLI_RUNS = {
+    'ADA': ((), 20, 10, 24, (1, 9)),
+    'StyleGAN2': (('--image-size', str(IMAGE)), 17, 16, 18, (1, 15)),
+}
+
+
+def _variant_recorder(module, seen):
+    '''A stand-in for `module.build_train_step` whose steps record
+    (step index at entry, do_r1, do_pl) in `seen`.'''
+    import inspect
+    orig = module.build_train_step
+    sig = inspect.signature(orig)
+
+    def build(*a, **k):
+        bound = sig.bind(*a, **k)
+        bound.apply_defaults()
+        tag = (bound.arguments['do_r1'], bound.arguments.get('do_pl', False))
+        step = orig(*a, **k)
+
+        def recorded(state, real, draws=None):
+            seen.append((state['step'],) + tag)
+            return step(state, real, draws)
+        return recorded
+    return orig, build
+
+
+def run_cli_path(recipe, card, direct_ips, want_line):
+    '''`python -m animeface_tpu_torch <recipe> --synthetic-data` in-process
+    through `__main__.main`, at the recipe's defaults (full width, bf16,
+    batch 32; `CLI_RUNS` sets the steps), then `--resume` from its
+    checkpoint directory. Checks: the line kernels' launches over the first
+    run (`want_line` a step: (forward, backward)) and no other hand-written
+    kernel; the artifacts; finite losses; every step took the variant of
+    its index (lazy R1 for StyleGAN2, additive R1 for ADA) and the resumed
+    run went on from the restored step with the checkpoint's state. Prints
+    images/s over the timed window beside `direct_ips`, the loader's time
+    a batch, and each checkpoint's seconds and MiB.'''
+    import os
+    from animeface_tpu_torch import checkpoint as ckpt_mod
+    from animeface_tpu_torch.__main__ import main as cli_main
+    from animeface_tpu_torch.dataset.synthetic import SyntheticImage
+    from animeface_tpu_torch.implementations.StyleGAN2 import utils as su
+    from animeface_tpu_torch.implementations.StyleGAN3 import utils as sg3
+    from animeface_tpu_torch.utils import argument
+
+    flags, steps, save, resume_to, (t_first, t_last) = CLI_RUNS[recipe]
+    module = su if recipe == 'StyleGAN2' else sg3
+    root = os.environ['ANIMEFACE_IMPLEMENTATIONS_DIR']
+    if argument.IMPLEMENTATIONS_DIR != root:
+        raise AssertionError(f'result_dir writes to {argument.IMPLEMENTATIONS_DIR}, not {root}')
+    out = os.path.join(root, recipe, 'result')
+    ckpt_dir = os.path.join(out, 'checkpoint')
+    argv = [recipe, '--synthetic-data', *flags, '--max-iters', str(steps), '--save', str(save)]
+
+    seen, stamps, entries, loads, saves, statuses = [], {}, [], [], [], []
+    orig_build, build = _variant_recorder(module, seen)
+    orig_run_training = module.run_training
+    orig_getitem = SyntheticImage.__getitem__
+    orig_save = ckpt_mod.Checkpointer.save
+
+    def run_training(**kw):
+        inner = kw['train_step']
+
+        def train_step(state, batch):
+            i = state['run']['step']
+            if not entries:
+                entries.append({k: v.clone() if isinstance(v, torch.Tensor) else v
+                                for k, v in state['run'].get('ada', {}).items()})
+            if i in (t_first, t_last):
+                torch.cuda.synchronize()
+                stamps[i] = time.perf_counter()
+            return inner(state, batch)
+        result = orig_run_training(**dict(kw, train_step=train_step))
+        statuses.append(result[1])
+        return result
+
+    def getitem(self, index):
+        t0 = time.perf_counter()
+        item = orig_getitem(self, index)
+        loads.append(time.perf_counter() - t0)
+        return item
+
+    def timed_save(self, step, state, meta=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = orig_save(self, step, state, meta)
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        saves.append((step, time.perf_counter() - t0, size / 2 ** 20))
+        return path
+
+    module.build_train_step, module.run_training = build, run_training
+    SyntheticImage.__getitem__, ckpt_mod.Checkpointer.save = getitem, timed_save
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        cli_main(argv)
+        wall = time.perf_counter() - t0
+        counts = _launches()
+        first = list(seen)
+        want = (0, 0, 0, 0, want_line[0] * steps, want_line[1] * steps)
+        if counts != want:
+            raise AssertionError(f'{recipe} CLI launches {counts} (bias_act, filtered_lrelu, '
+                                 f'two-pass fwd/bwd, line fwd/bwd), want {want}')
+        files = os.listdir(out)
+        want_files = {f'{save}.png', f'{steps}.png', f'G_{steps}.pt', 'checkpoint'}
+        if want_files - set(files) or not any(f.startswith('args-') for f in files):
+            raise AssertionError(f'{recipe} CLI artifacts {sorted(files)} lack '
+                                 f'{sorted(want_files - set(files))} or args-*.json')
+        with open(os.path.join(ckpt_dir, f'ckpt-{steps}', 'meta.json')) as f:
+            meta = json.load(f)
+        losses = meta['status']['loss']
+        if not all(np.isfinite(v) for vs in losses.values() for v in vs):
+            raise AssertionError(f'{recipe} CLI: non-finite losses in meta.json')
+        saved = torch.load(os.path.join(ckpt_dir, f'ckpt-{steps}', 'state.pt'),
+                           map_location='cpu', weights_only=True)['run']
+
+        seen.clear()
+        entries.clear()
+        _reset_launches()
+        t0 = time.perf_counter()
+        cli_main(argv + ['--resume', ckpt_dir, '--max-iters', str(resume_to)])
+        resume_wall = time.perf_counter() - t0
+        resumed = list(seen)
+    finally:
+        module.build_train_step, module.run_training = orig_build, orig_run_training
+        SyntheticImage.__getitem__, ckpt_mod.Checkpointer.save = orig_getitem, orig_save
+
+    a = meta['args']           # the run's arguments, as strings
+
+    def rule(i):
+        if recipe == 'StyleGAN2':
+            return (float(a['r1_lambda']) > 0 and i % int(a['d_k']) == 0 and i != 0,
+                    float(a['pl_lambda']) > 0 and i % int(a['g_k']) == 0 and i != 0)
+        return (float(a['gp_lambda']) > 0 and i % int(a['gp_every']) == 0, False)
+
+    for label, got, span in (('run', first, range(steps)),
+                             ('resume', resumed, range(steps, resume_to))):
+        want = [(i,) + rule(i) for i in span]
+        if [(i, bool(r1), bool(pl)) for i, r1, pl in got] != want:
+            raise AssertionError(f'{recipe} CLI {label}: steps and variants {got}, want {want}')
+    if statuses[-1].batches_done != resume_to:
+        raise AssertionError(f'{recipe} CLI resume ended at {statuses[-1].batches_done}')
+    if 'ada' in saved:
+        restored = entries[0]
+        for k, v in saved['ada'].items():
+            if not torch.equal(restored[k].cpu(), v):
+                raise AssertionError(f'ADA resume: ada[{k!r}] {restored[k]} is not the '
+                                     f"checkpoint's {v}")
+        print(f"{recipe} CLI resume: p {float(restored['p']):.6f} restored from ckpt-{steps}, "
+              f"ada state equal; final p {float(statuses[-1].state_dict()['loss']['p'][-1]):.6f}")
+
+    B, size = int(a['batch_size']), int(a['image_size'])
+    n = t_last - t_first
+    ips = B * n / (stamps[t_last] - stamps[t_first])
+    r1_at = [i for i, r1, _ in first + resumed if r1]
+    print(f'{recipe} CLI: {steps} steps then resumed to {resume_to} ({wall:.2f} s and '
+          f'{resume_wall:.2f} s wall, set-up included), R1 at steps {r1_at}, line launches '
+          f'{counts[4]}/{counts[5]} in the first run')
+    print(f'{recipe} CLI: {ips:.2f} images/s over steps {t_first}-{t_last - 1} ({n} steps, '
+          f'batch {B}, {size}px, bf16, loader and Status included) against '
+          f'{direct_ips:.2f} images/s of the direct build_training run ({ips / direct_ips:.3f} '
+          f'of it) on {card}')
+    per_batch = sum(loads) / (len(loads) / B)
+    print(f'{recipe} CLI loader: {per_batch * 1e3:.1f} ms a batch of {B} synthetic '
+          f'{size}px images ({len(loads)} images, one producer thread) on {card}')
+    for step, secs, mib in saves:
+        print(f'{recipe} CLI checkpoint ckpt-{step}: {secs:.3f} s, {mib:.1f} MiB on {card}')
+    print(card)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this run needs one GPU', file=sys.stderr)
         return 1
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_results_') as results:
+        # the training CLI's result directories (read when the port's
+        # argument module is first imported, below)
+        os.environ['ANIMEFACE_IMPLEMENTATIONS_DIR'] = results
+        return run_all()
+
+
+def run_all() -> int:
     from animeface_tpu_torch import _build, resolve_device
 
     dev = resolve_device('cuda')
@@ -1390,7 +1590,8 @@ def main() -> int:
 
     kernels[0]['launches'], kernels[1]['launches'] = run_main_path(dev, card)
     torch.cuda.empty_cache()
-    line_kernels[0]['launches'], line_kernels[1]['launches'] = run_ada_path(dev, card)
+    (line_kernels[0]['launches'], line_kernels[1]['launches']), ada_ips = \
+        run_ada_path(dev, card)
     kernels += line_kernels
     torch.cuda.empty_cache()
 
@@ -1403,9 +1604,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     bias_act_entry['launches'] = run_cips_path(dev, card)
     kernels += [bias_act_entry, flrelu_entry]
-    for path in (run_cips_train_path, run_fastgan_path, run_stylegan2_diffaugment_path):
+    for path in (run_cips_train_path, run_fastgan_path):
         torch.cuda.empty_cache()
         path(dev, card)
+    torch.cuda.empty_cache()
+    sg2_ips = run_stylegan2_diffaugment_path(dev, card)
+
+    torch.cuda.empty_cache()
+    run_cli_path('ADA', card, ada_ips, want_line=(6, 2))
+    torch.cuda.empty_cache()
+    run_cli_path('StyleGAN2', card, sg2_ips, want_line=(0, 0))
 
     print(json.dumps({'kernels': kernels}))
     print(card)

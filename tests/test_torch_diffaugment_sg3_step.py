@@ -90,7 +90,7 @@ def test_stylegan3_recipe_defaults_to_diffaugment():
     policy is the recipe's, R1 at step % gp_every == 0, and the default
     draws give the reals and the fakes their own.'''
     args = tu3.default_args(**{k: v for k, v in vars(sg3t.ARGS).items()
-                               if k in tu3.STYLEGAN3_DEFAULTS})
+                               if k in vars(tu3.default_args())})
     assert args.policy == 'color,translation'
     run = tu3.build_training(args, device='cpu', seed=0)
     assert [run.uses_r1(i) for i in (0, 1, 15, 16)] == [True, False, False, True]

@@ -41,6 +41,19 @@ REQUIRED = (
     'animeface_tpu_torch.implementations.ADA.utils',
     'animeface_tpu_torch.implementations.FastGAN.model',
     'animeface_tpu_torch.implementations.FastGAN.utils',
+    'animeface_tpu_torch.__main__',
+    'animeface_tpu_torch.checkpoint',
+    'animeface_tpu_torch.dataset',
+    'animeface_tpu_torch.dataset._base',
+    'animeface_tpu_torch.dataset.animeface',
+    'animeface_tpu_torch.dataset.native',
+    'animeface_tpu_torch.dataset.synthetic',
+    'animeface_tpu_torch.nnutils.accelerate',
+    'animeface_tpu_torch.nnutils.trainer',
+    'animeface_tpu_torch.utils',
+    'animeface_tpu_torch.utils.argument',
+    'animeface_tpu_torch.utils.misc',
+    'animeface_tpu_torch.utils.status',
 )
 
 
