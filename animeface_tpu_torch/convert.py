@@ -1,5 +1,6 @@
 '''JAX package parameters -> the port's `state_dict`, for StyleGAN2 and
-StyleGAN3 G and D, the CIPS G, and FastGAN's G and D.
+StyleGAN3 G and D, the CIPS G, FastGAN's G and D, and the G and D of
+DCGAN (also WGAN's and WGAN-gp's) and GAN.
 
 Input: a flax params tree (nested dicts of numpy arrays, as
 `jax.device_get(variables['params'])` gives). Output: a dict of float32
@@ -17,7 +18,9 @@ so raw values carry over unchanged.
 StyleGAN2 below; StyleGAN3 (`convert_stylegan3_generator`,
 `convert_stylegan3_discriminator`), CIPS (`convert_cips_generator`; its D
 is StyleGAN3's) and FastGAN (`convert_fastgan_generator`,
-`convert_fastgan_discriminator`) after it.
+`convert_fastgan_discriminator`), DCGAN (`convert_dcgan_generator`,
+`convert_dcgan_discriminator`) and GAN (`convert_gan_generator`,
+`convert_gan_discriminator`) after it.
 
 Generator:                                 port
   map/ELRDense_i                           map.layers.i
@@ -268,4 +271,74 @@ def convert_fastgan_discriminator(variables) -> dict:
                                          _indexed(s[dec], 'UpBlock'))):
             _fastgan_up(pu, su, f'{dec}.ups.{i}', out)
         _sn_layer(p[dec]['SNConv_0'], s[dec]['SNConv_0'], f'{dec}.out', out)
+    return out
+
+
+# ---------------------------------------------------------------- DCGAN and GAN
+
+def _batch_norm(p, s, prefix, out):
+    out[f'{prefix}.weight'] = _t(p['scale'])
+    out[f'{prefix}.bias'] = _t(p['bias'])
+    out[f'{prefix}.running_mean'] = _t(s['mean'])
+    out[f'{prefix}.running_var'] = _t(s['var'])
+
+
+def convert_dcgan_generator(variables) -> dict:
+    '''ConvTranspose_i -> convs.i, BatchNorm_i -> norms.i. flax's
+    ConvTranspose does not flip its kernel: the HWIO kernel is flipped in
+    H and W and laid out [in, out, kh, kw] for `F.conv_transpose2d`.'''
+    p, s = variables['params'], variables['batch_stats']
+    out = {}
+    for i, pc in enumerate(_indexed(p, 'ConvTranspose')):
+        out[f'convs.{i}.weight'] = _t(np.asarray(pc['kernel'])[::-1, ::-1].transpose(2, 3, 0, 1))
+    for i, (pn, sn) in enumerate(zip(_indexed(p, 'BatchNorm'), _indexed(s, 'BatchNorm'))):
+        _batch_norm(pn, sn, f'norms.{i}', out)
+    return out
+
+
+def convert_dcgan_discriminator(variables) -> dict:
+    '''Conv_i -> convs.i, BatchNorm_i -> norms.i (the first conv has none).'''
+    p, s = variables['params'], variables['batch_stats']
+    out = {}
+    for i, pc in enumerate(_indexed(p, 'Conv')):
+        _conv(pc, f'convs.{i}', out)
+    for i, (pn, sn) in enumerate(zip(_indexed(p, 'BatchNorm'), _indexed(s, 'BatchNorm'))):
+        _batch_norm(pn, sn, f'norms.{i}', out)
+    return out
+
+
+def convert_gan_generator(variables, image_shape) -> dict:
+    '''Dense_i -> layers.i, BatchNorm_i -> norms.i; the last Dense writes
+    an NHWC image of `image_shape` (H, W, C), so its output features are
+    permuted to the port's NCHW order.'''
+    p, s = variables['params'], variables['batch_stats']
+    H, W, C = image_shape
+    out = {}
+    dense = _indexed(p, 'Dense')
+    for i, pd in enumerate(dense[:-1]):
+        _dense(pd, f'layers.{i}', out)
+    kernel = np.asarray(dense[-1]['kernel'])
+    last = len(dense) - 1
+    out[f'layers.{last}.weight'] = _t(
+        kernel.reshape(-1, H, W, C).transpose(0, 3, 1, 2).reshape(kernel.shape[0], -1).T)
+    out[f'layers.{last}.bias'] = _t(
+        np.asarray(dense[-1]['bias']).reshape(H, W, C).transpose(2, 0, 1).reshape(-1))
+    for i, (pn, sn) in enumerate(zip(_indexed(p, 'BatchNorm'), _indexed(s, 'BatchNorm'))):
+        _batch_norm(pn, sn, f'norms.{i}', out)
+    return out
+
+
+def convert_gan_discriminator(params, image_shape) -> dict:
+    '''Dense_i -> layers.i; the first Dense reads a flattened NHWC image of
+    `image_shape` (H, W, C), so its input features are permuted to the
+    port's NCHW flatten order.'''
+    H, W, C = image_shape
+    out = {}
+    dense = _indexed(params, 'Dense')
+    kernel = np.asarray(dense[0]['kernel'])
+    out['layers.0.weight'] = _t(
+        kernel.reshape(H, W, C, -1).transpose(2, 0, 1, 3).reshape(H * W * C, -1).T)
+    out['layers.0.bias'] = _t(dense[0]['bias'])
+    for i, pd in enumerate(dense[1:], start=1):
+        _dense(pd, f'layers.{i}', out)
     return out

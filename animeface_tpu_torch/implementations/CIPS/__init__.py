@@ -1,1 +1,3 @@
-'''CIPS in PyTorch: the generator, the recipe's models, its training step and its sampler.'''
+'''CIPS in PyTorch: the generator, the recipe's models, its training step, its sampler and its CLI.'''
+
+from animeface_tpu_torch.implementations.CIPS.utils import main  # noqa: F401

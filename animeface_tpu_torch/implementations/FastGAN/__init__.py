@@ -1,1 +1,3 @@
-'''FastGAN in PyTorch: the SLE generator, the self-supervised D and the recipe's step.'''
+'''FastGAN in PyTorch: the SLE generator, the self-supervised D, the recipe's step and its CLI.'''
+
+from animeface_tpu_torch.implementations.FastGAN.utils import main  # noqa: F401

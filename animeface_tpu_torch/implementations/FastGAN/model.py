@@ -10,9 +10,7 @@ JAX package:
     as an [out, fan_in] matrix, with l2-normalisation x * rsqrt(sum(x^2) +
     1e-12), and divides the weight by sigma = u' . (W v), u' and v held
     constant; `train=True` stores u' (flax's `update_stats`);
-  * flax's BatchNorm: batch statistics in float32 with the variance
-    E[x^2] - E[x]^2 (clipped at 0), eps 1e-5, the running mean and the
-    BIASED running variance at momentum 0.9, used when `train=False`;
+  * flax's BatchNorm (`nnutils/batchnorm.py`, eps 1e-5, momentum 0.9);
     'in' is flax's GroupNorm(group_size=1) without scale or bias, eps 1e-6;
   * nearest resizes with JAX's sample positions: 2x up repeats each
     pixel, and the decoders' targets sample pixels 1, 3, 5, ... on a 2x
@@ -38,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from animeface_tpu_torch.nnutils.batchnorm import batch_norm
 from animeface_tpu_torch.ops.activations import leaky_relu
 
 
@@ -127,21 +126,13 @@ class Norm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x, train: bool = True):
+        if self.bn:
+            return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
+                              train, dtype=self.dtype)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if not self.bn or train:
-            mean = xf.mean(dim=(0, 2, 3) if self.bn else (2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3) if self.bn else (2, 3)) - mean * mean).clamp_min(0)
-        if not self.bn:
-            y = (xf - mean[..., None, None]) * torch.rsqrt(var + 1e-6)[..., None, None]
-            return y.to(self.dtype)
-        if train:
-            with torch.no_grad():
-                self.running_mean.mul_(0.9).add_(mean.detach() * 0.1)
-                self.running_var.mul_(0.9).add_(var.detach() * 0.1)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + 1e-5) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        mean = xf.mean(dim=(2, 3))
+        var = ((xf * xf).mean(dim=(2, 3)) - mean * mean).clamp_min(0)
+        y = (xf - mean[..., None, None]) * torch.rsqrt(var + 1e-6)[..., None, None]
         return y.to(self.dtype)
 
 

@@ -18,39 +18,61 @@ CLI defaults of `main`). Semantics kept:
 The step mutates `state` and the modules in place and returns (metrics,
 recons) as the JAX step does: the losses as 0-dim tensors without a host
 sync, and D's reconstructions on the reals [recon, small, recon_part,
-img_part]. Saving them as an image grid is the runtime's (not ported).
+img_part]. `train` runs the step in the runtime and writes them as the
+grid `recon.jpg` (8 to a row) whenever its own step count, from 0 in each
+process as in JAX, reaches a multiple of `--save`; samples and `G_<step>.pt`
+come from G_ema with `--ema`, else from G, in eval mode.
 '''
 
 from __future__ import annotations
 
 import copy
+import os
 from types import SimpleNamespace
 
 import torch
 
 from animeface_tpu_torch import resolve_device
+from animeface_tpu_torch.dataset import build_loader
 from animeface_tpu_torch.implementations.FastGAN.model import Discriminator, Generator
+from animeface_tpu_torch.nnutils.accelerate import Accelerator
 from animeface_tpu_torch.nnutils.diffaugment import diff_augment, draw_diff_augment
 from animeface_tpu_torch.nnutils.loss import HingeLoss
 from animeface_tpu_torch.nnutils.rng import make_generator, sample_nnoise
-from animeface_tpu_torch.nnutils.training import step_all_parameters, update_ema
+from animeface_tpu_torch.nnutils.trainer import default_max_iters, run_training
+from animeface_tpu_torch.nnutils.training import step_all_parameters, train_state, update_ema
+from animeface_tpu_torch.utils import add_args, make_image_grid, save_args, save_image
+from animeface_tpu_torch.utils.argument import recipe_defaults, result_dir
 
-#: the recipe's CLI defaults (`main`; `num_sle` None: half the up blocks but
-#: the last), at the BASELINE config's 256px and the global batch 32
-FASTGAN_DEFAULTS = dict(
-    image_size=256, batch_size=32, num_test=16, image_channels=3, latent_dim=128,
-    g_channels=32, g_max_channels=512, interp_size=4, g_bottom=4, norm_name='bn',
-    transposed=False, num_sle=None, d_channels=32, d_max_channels=512, d_bottom=8,
-    init_down_size=256, decoder_image_size=128, lr=0.0002, betas=(0.5, 0.999),
-    policy='color,translation', ema=False, no_bf16=False)
+#: the recipe's flags (`main`; `num_sle` None: half the up blocks but the
+#: last), with the global ones (image 128, batch 32; the BASELINE config is
+#: `--image-size 256`)
+FASTGAN_ARGS = dict(
+    num_test=[16, 'number of test images'],
+    image_channels=[3, 'image channels'],
+    latent_dim=[128, 'dimension for input latent'],
+    g_channels=[32, 'G minimum channel width'],
+    g_max_channels=[512, 'G maximum channel width'],
+    interp_size=[4, 'SLE squeeze size'],
+    g_bottom=[4, 'G bottom resolution'],
+    norm_name=['bn', 'normlization name'],
+    transposed=[False, 'use ConvTransposed2d instead of Upsample'],
+    num_sle=[int, 'number of sle blocks'],
+    d_channels=[32, 'D minimum channel width'],
+    d_max_channels=[512, 'D maximum channel width'],
+    d_bottom=[8, 'D bottom resolution'],
+    init_down_size=[256, 'resolution after initial downsampling'],
+    decoder_image_size=[128, 'decoder target resolution'],
+    lr=[0.0002, 'learning rate'],
+    betas=[[0.5, 0.999], 'betas'],
+    policy=['color,translation', 'policy for diffaugment'],
+    ema=[False, 'moving average of G'],
+)
 
 
 def default_args(**overrides):
-    '''The recipe's defaults as an argument namespace, with overrides.'''
-    unknown = set(overrides) - set(FASTGAN_DEFAULTS)
-    if unknown:
-        raise TypeError(f'unknown FastGAN arguments: {sorted(unknown)}')
-    return SimpleNamespace(**dict(FASTGAN_DEFAULTS, **overrides))
+    '''The recipe's parsed defaults as an argument namespace, with overrides.'''
+    return recipe_defaults('FastGAN', FASTGAN_ARGS, overrides)
 
 
 def build_models(args, device=None, seed=0):
@@ -172,3 +194,36 @@ def build_training(args, device=None, seed=0):
     sample_fn = make_sampler(G_ema if args.ema else G, args, seed)
     return SimpleNamespace(G=G, D=D, G_ema=G_ema, g_opt=g_opt, d_opt=d_opt, state=state,
                            train_step=train_step, sample_fn=sample_fn)
+
+
+def train(args, max_iters, loader, name='FastGAN'):
+    accel = Accelerator(bf16=not args.no_bf16)
+    run = build_training(args, accel.device, seed=args.seed)
+    out_dir = result_dir(name)
+    step_count = {'i': 0}
+
+    def train_step(state, batch):
+        metrics, recons = run.train_step(state['run'], batch)
+        step_count['i'] += 1
+        if step_count['i'] % args.save == 0:
+            grid = make_image_grid(*[r.float().permute(0, 2, 3, 1).cpu().numpy()
+                                     for r in recons])
+            save_image(grid, os.path.join(out_dir, 'recon.jpg'), nrow=8)
+        return state, metrics
+
+    return run_training(
+        name=name, args=args, accel=accel, state=train_state(run), loader=loader,
+        train_step=train_step, sample_fn=lambda state: run.sample_fn(),
+        max_iters=max_iters, save_interval=args.save,
+        ema_params_path=lambda s: (s['G_ema'] if args.ema else s['G']).state_dict(),
+    )
+
+
+def main(parser):
+    parser = add_args(parser, FASTGAN_ARGS)
+    args = parser.parse_args()
+    save_args(args)
+
+    loader = build_loader(args, 'image')
+    max_iters = default_max_iters(args, loader)
+    train(args, max_iters, loader)

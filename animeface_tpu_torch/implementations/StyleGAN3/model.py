@@ -15,7 +15,10 @@ class. What is kept from the JAX package:
     layer and `w_avg` of the mapping, updated in place by a forward with
     `train=True`, and `freqs`/`phases` of the synthesis input. A training
     step that needs the pre-step moments snapshots and restores them
-    (`Generator.moment_buffers`).
+    (`Generator.moment_buffers`);
+  * the JAX `flrelu_memory` field: how each layer's `filtered_lrelu` keeps
+    what its backward needs ('pack' by default, 'store' or 'remat'; the
+    three give the same values).
 
 `convert.py` maps the JAX package's parameters and moments onto these
 modules.
@@ -137,8 +140,9 @@ class StyleLayer(nn.Module):
                  out_size, in_sampling_rate, out_sampling_rate, in_cutoff, out_cutoff,
                  in_half_width, out_half_width, is_rgb, is_critical_sampled,
                  lrelu_sampling=2, filter_size=6, conv_clamp=256.0, ema_decay=0.999,
-                 dtype=torch.float32, generator=None):
+                 flrelu_memory='pack', dtype=torch.float32, generator=None):
         super().__init__()
+        self.flrelu_memory = flrelu_memory
         self.gain = 1.0 if is_rgb else 2 ** 0.5
         self.negative_slope = 1.0 if is_rgb else 0.2
         self.conv_clamp = conv_clamp
@@ -180,7 +184,7 @@ class StyleLayer(nn.Module):
         x = self.conv(x, s, input_gain)
         return filtered_lrelu(x, self.up_filter, self.down_filter, self.bias.to(x.dtype),
                               self.up_factor, self.down_factor, self.padding, self.gain,
-                              self.negative_slope, self.conv_clamp, memory='pack')
+                              self.negative_slope, self.conv_clamp, memory=self.flrelu_memory)
 
 
 class SynthesisInput(nn.Module):
@@ -265,7 +269,7 @@ class Synthesis(nn.Module):
     def __init__(self, image_size, num_layers=14, channels=32, max_channels=512,
                  style_dim=512, image_channels=3, output_scale=0.25, margin_size=10,
                  first_cutoff=2, first_stopband=2 ** 2.1, last_stopband_rel=2 ** 0.3,
-                 kernel_size=3, dtype=torch.float32, generator=None):
+                 kernel_size=3, flrelu_memory='pack', dtype=torch.float32, generator=None):
         super().__init__()
         self.num_layers = num_layers
         self.output_scale = output_scale
@@ -286,7 +290,7 @@ class Synthesis(nn.Module):
                 int(sizes[prev]), int(sizes[i]), float(srates[prev]), float(srates[i]),
                 float(cutoffs[prev]), float(cutoffs[i]), float(half_widths[prev]),
                 float(half_widths[i]), is_rgb, i >= num_layers - 2,
-                dtype=dtype, generator=generator))
+                flrelu_memory=flrelu_memory, dtype=dtype, generator=generator))
         self.net = nn.ModuleList(layers)
 
     @property
@@ -308,7 +312,7 @@ class Generator(nn.Module):
                  channels=32, max_channels=512, style_dim=512, pixel_norm=True,
                  image_channels=3, output_scale=0.25, margin_size=10, first_cutoff=2,
                  first_stopband=2 ** 2.1, last_stopband_rel=2 ** 0.3, kernel_size=3,
-                 dtype=torch.float32, generator=None):
+                 flrelu_memory='pack', dtype=torch.float32, generator=None):
         super().__init__()
         self.latent_dim = latent_dim
         self.map = Mapping(latent_dim, style_dim, map_num_layers, pixel_norm,
@@ -316,7 +320,7 @@ class Generator(nn.Module):
         self.synthesis = Synthesis(
             image_size, num_layers, channels, max_channels, style_dim, image_channels,
             output_scale, margin_size, first_cutoff, first_stopband, last_stopband_rel,
-            kernel_size, dtype=dtype, generator=generator)
+            kernel_size, flrelu_memory, dtype=dtype, generator=generator)
 
     def moment_buffers(self):
         '''The buffers a forward with `train=True` updates (the JAX

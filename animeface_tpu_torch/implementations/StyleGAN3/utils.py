@@ -42,6 +42,7 @@ from animeface_tpu_torch.nnutils.rng import make_generator, sample_nnoise
 from animeface_tpu_torch.nnutils.trainer import (
     default_max_iters, host_step_counter, run_training)
 from animeface_tpu_torch.nnutils.training import step_all_parameters, train_state, update_ema
+from animeface_tpu_torch.ops import registry
 from animeface_tpu_torch.utils import add_args, save_args
 from animeface_tpu_torch.utils.argument import recipe_defaults
 
@@ -259,11 +260,12 @@ def assemble_training(args, G, D, G_ema, seed=0, augment_fn=None, ada_enabled=Fa
                            steps=steps, uses_r1=uses_r1, train_step=train_step)
 
 
-def run_recipe(run, args, accel, max_iters, loader, name):
+def run_recipe(run, args, accel, max_iters, loader, name, sample_impl=None):
     '''`run_training` around a `build_training` namespace (shared with the
-    ADA recipe): the variant from the host step index, samples of G_ema
-    (with its moments) on `num_test` fixed latents drawn from `args.seed`,
-    G_ema's state dict (with the moments) as `G_<step>.pt`.'''
+    ADA and CIPS recipes): the variant from the host step index, samples of
+    G_ema (with its moments) on `num_test` fixed latents drawn from
+    `args.seed` under the ops registry's `sample_impl` (None keeps the
+    default), G_ema's state dict (with the moments) as `G_<step>.pt`.'''
     next_index = host_step_counter()
 
     def train_step(state, batch):
@@ -275,7 +277,8 @@ def run_recipe(run, args, accel, max_iters, loader, name):
 
     @torch.no_grad()
     def sample_fn(state):
-        return state['G_ema'](const_z)
+        with registry.default_impl(sample_impl):
+            return state['G_ema'](const_z)
 
     return run_training(
         name=name, args=args, accel=accel, state=train_state(run), loader=loader,

@@ -1,0 +1,3 @@
+'''WGAN with weight clipping in PyTorch (DCGAN's models): its steps and the recipe's CLI.'''
+
+from animeface_tpu_torch.implementations.WGAN.utils import main  # noqa: F401

@@ -23,3 +23,10 @@ def sample_nnoise(size, generator: torch.Generator, mean: float = 0., std: float
     '''Normal noise on the generator's device.'''
     return torch.randn(size, generator=generator, dtype=dtype,
                        device=generator.device) * std + mean
+
+
+def sample_unoise(size, generator: torch.Generator, start: float = 0., end: float = 1.,
+                  dtype=torch.float32):
+    '''Uniform noise in [start, end) on the generator's device.'''
+    return torch.rand(size, generator=generator, dtype=dtype,
+                      device=generator.device) * (end - start) + start

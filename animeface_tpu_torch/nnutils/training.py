@@ -28,6 +28,8 @@ def step_all_parameters(opt: torch.optim.Optimizer, module: nn.Module) -> None:
 def train_state(run) -> dict:
     '''The training state of a `build_training` namespace, as `run_training`
     and the checkpoints take it: the modules, the optimizers and the step's
-    own dict (step count, generator, controller) under 'run'.'''
-    return dict(G=run.G, D=run.D, G_ema=run.G_ema, g_opt=run.g_opt, d_opt=run.d_opt,
-                run=run.state)
+    own dict (step count, generator, controller) under 'run'. A recipe
+    without an EMA copy of G has no 'G_ema'.'''
+    state = dict(G=run.G, D=run.D, G_ema=getattr(run, 'G_ema', None), g_opt=run.g_opt,
+                 d_opt=run.d_opt, run=run.state)
+    return {k: v for k, v in state.items() if v is not None}

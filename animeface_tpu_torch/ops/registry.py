@@ -14,6 +14,7 @@ names 'xla' and 'pallas' read as 'torch' and 'cuda'.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 _VALID = ('torch', 'cuda')
@@ -42,3 +43,14 @@ def resolve_impl(impl: str | None) -> str:
     if impl is None or impl == 'auto':
         return _default_impl
     return _canonical(impl)
+
+
+@contextlib.contextmanager
+def default_impl(impl: str | None):
+    '''Run the block with the default set to `impl` (None keeps it).'''
+    before = _default_impl
+    set_default_impl(before if impl is None else impl)
+    try:
+        yield
+    finally:
+        set_default_impl(before)

@@ -67,8 +67,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      buffers within 1e-3 of their scale, gradients within 1e-3 of their
      norm plus twice the largest relative change of any gradient when the
      CPU's z and reals move by 1e-6);
- 10. drive FastGAN at 256px with the recipe's defaults (batch 32, bf16,
-     ema off): 2 warm-up steps, 16 timed steps with finite G, D and
+ 10. drive FastGAN at 256px with the recipe's defaults otherwise (batch 32,
+     bf16, ema off): 2 warm-up steps, 16 timed steps with finite G, D and
      reconstruction losses and no hand-written kernel launched, a finite
      sample, one profiled step, the f32 step against the CPU;
  11. drive StyleGAN2 with its default DiffAugment at 256px (the recipe's
@@ -90,8 +90,29 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      controller state; images/s over a window of steps without a snapshot
      or an R1 step beside the direct run's, the loader's time a batch,
      each checkpoint's seconds and MiB;
- 13. print one JSON line of the kernels, the card line, and last
+ 13. drive StyleGAN3 at 256px (the recipe's defaults otherwise, batch 32,
+     bf16, DiffAugment): a warm-up step of each variant, one 16-step cycle
+     (15 plain, 1 additive R1) with no hand-written kernel launched,
+     images/s, peak memory, one profiled plain step, G_ema and D in f32 on
+     the card against the CPU on 2 latents;
+ 14. drive the CLI as in 12 for DCGAN and WGAN-gp at 64px (20 steps saving
+     every 10, resumed to 24 and 25; WGAN-gp's G steps at 4, 9, ..., 24),
+     GAN and WGAN at 64px (10 steps, resumed to 12; WGAN's D within
+     +-0.01), CIPS at 128px (17 steps saving every 16, resumed to 18; R1 at
+     0 and 16; 41 bias_act launches for each sample forward of a snapshot
+     and none in the steps) and FastGAN at 256px (likewise, with
+     `recon.jpg`); before each of the four 64px recipes, 10 steps of its
+     `build_training` on one batch, the direct images/s its CLI's stand
+     beside (CIPS's and FastGAN's are phases 9 and 10); after DCGAN's and
+     WGAN-gp's runs, the f32 step (WGAN-gp's full step, double backward
+     included) on the card against the CPU; each phase's wall time and
+     the run's total;
+ 15. print one JSON line of the kernels, the card line, and last
      {"ok": true, "device": {...}}.
+The card-vs-CPU step gate (`check_step_against_cpu`) takes S, the
+gradients' sensitivity to a 1e-6 move of the inputs, as the largest over
+three independent nudges, and prints each nudge's S and each gate's
+worst/tolerance ratio.
 Imports nothing of JAX or of the JAX package.
 '''
 
@@ -693,7 +714,7 @@ def run_ada_path(dev, card, **overrides):
     return launches, args.batch_size * ADA_STEPS / dt
 
 
-def check_models_against_cpu(run, args, dev, batch=2, rtol=1e-3):
+def check_models_against_cpu(run, args, dev, batch=2, rtol=1e-3, label='ADA'):
     '''The cycle's G_ema and D at full width, in f32 on the card (TF32 off)
     and on the CPU, on the same latents: images and logits agree to `rtol`
     of their scale (f32 on both sides, summed in other orders through 15
@@ -714,11 +735,11 @@ def check_models_against_cpu(run, args, dev, batch=2, rtol=1e-3):
                             ('logits', outs[0][1], outs[1][1])):
         scale = max(float(want.abs().max()), 1e-6)
         err = float((got - want).abs().max())
-        print(f'ADA G_ema/D f32, card vs CPU, {batch} samples: {what} max_abs_err {err:.3e} '
+        print(f'{label} G_ema/D f32, card vs CPU, {batch} samples: {what} max_abs_err {err:.3e} '
               f'(scale {scale:.3e}, tol {rtol} x scale)')
         if not (bool(torch.isfinite(got).all()) and err <= rtol * scale):
             raise AssertionError(f'{what} on the card disagree with the CPU: {err} vs {scale}')
-    print(f'card vs CPU check: {time.perf_counter() - t0:.2f} s')
+    print(f'{label} card vs CPU check: {time.perf_counter() - t0:.2f} s')
 
 
 # ------------------------------------------------- the ops registry's kernels
@@ -1155,7 +1176,8 @@ def _to(obj, device):
 
 def _real_images(args, dev, seed=1):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return torch.rand((args.batch_size, args.image_channels, args.image_size, args.image_size),
+    channels = getattr(args, 'image_channels', 3)
+    return torch.rand((args.batch_size, channels, args.image_size, args.image_size),
                       generator=g, device=dev) * 2 - 1
 
 
@@ -1186,7 +1208,7 @@ def _cycle(label, run, real, steps, card, losses_of):
 
 
 def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev, batch=2,
-                           rtol=1e-3, nudge=1e-6, max_nudged=0.1):
+                           rtol=1e-3, nudge=1e-6, max_nudged=0.1, nudges=3):
     '''One training step at full width in f32 on the card (TF32 off) and on
     the CPU, from `run`'s weights and buffers and the same draws (made on
     the CPU). Plain SGD on both sides, so the G phase sees the same D (an
@@ -1197,33 +1219,35 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
     A gradient of such a step moves by more than that when its inputs move
     at f32 rounding (leaky ReLU inputs within rounding of 0 take the other
     slope; BatchNorm's E[x^2] - E[x]^2 cancels), and by how much varies
-    from tensor to tensor and draw to draw. So the CPU runs the step a
-    second time with the reals and z moved by `nudge` * N(0, 1) (about 8
-    ulps of a value near 1); S is the largest L2 change, relative to its
-    norm, that this makes to any gradient (at most `max_nudged`, or the
-    comparison would say nothing), and every gradient must agree in L2 to
-    (`rtol` + 2 S) of its norm.'''
+    from tensor to tensor and draw to draw. So the CPU runs the step again
+    `nudges` times, each with the reals and z moved by `nudge` * N(0, 1)
+    (about 8 ulps of a value near 1) from a generator of its own seed; S
+    is the largest L2 change, relative to its norm, that any of these
+    makes to any gradient (at most `max_nudged`, or the comparison would
+    say nothing), and every gradient must agree in L2 to (`rtol` + 2 S)
+    of its norm. `build_models(args, device)` returns (G, D, G_ema), G_ema
+    None for a recipe without one. Prints S for each nudge and each gate's
+    worst error over its tolerance; returns those ratios.'''
     f32 = SimpleNamespace(**dict(vars(args), no_bf16=True, batch_size=batch))
     cpu = torch.device('cpu')
     real = _real_images(f32, cpu, seed=5)
-    g = torch.Generator().manual_seed(7)
-
-    def nudged(t):
-        return t + nudge * torch.randn(t.shape, generator=g)
 
     outs = []
     t0 = time.perf_counter()
-    for device, moved in ((dev, False), (cpu, False), (cpu, True)):
+    for device, seed in [(dev, None), (cpu, None)] + [(cpu, 7 + k) for k in range(nudges)]:
         G, D, G_ema = build_models(f32, device)
-        for mine, theirs in ((G, run.G), (D, run.D), (G_ema, run.G_ema)):
-            mine.load_state_dict(theirs.state_dict())
+        for mine, theirs in ((G, run.G), (D, run.D), (G_ema, getattr(run, 'G_ema', None))):
+            if mine is not None:
+                mine.load_state_dict(theirs.state_dict())
         state = dict(step=0, generator=torch.Generator(device=device).manual_seed(0))
         step = make_step(G, D, G_ema, torch.optim.SGD(G.parameters(), lr=1e-3),
                          torch.optim.SGD(D.parameters(), lr=1e-3))
         draws = draw(G, real, f32)
         images = real
-        if moved:
-            images, draws['z'] = nudged(real), nudged(draws['z'])
+        if seed is not None:
+            g = torch.Generator().manual_seed(seed)
+            images = real + nudge * torch.randn(real.shape, generator=g)
+            draws['z'] = draws['z'] + nudge * torch.randn(draws['z'].shape, generator=g)
         metrics = step(state, images.to(device), _to(draws, device))
         if isinstance(metrics, tuple):
             metrics = metrics[0]
@@ -1233,13 +1257,16 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
             got.update({f'buffer {name}.{n}': b.cpu() for n, b in module.named_buffers()})
         outs.append({k: v.double() for k, v in got.items()})
         del G, D, G_ema, step
-    card, want, moved = outs
+    card, want, moved = outs[0], outs[1], outs[2:]
 
     def rel_l2(a, key):
         return float((a[key] - want[key]).norm()) / max(float(want[key].norm()), 1e-30)
 
     grads = [k for k in want if k.startswith('grad')]
-    nudged_worst = max((rel_l2(moved, k), k) for k in grads)
+    per_nudge = [max((rel_l2(m, k), k) for k in grads) for m in moved]
+    nudged_worst = max(per_nudge)
+    print(f'{label} f32 step: S per nudge (seeds 7-{6 + nudges}) '
+          + ', '.join(f'{v:.3e} ({k})' for v, k in per_nudge))
     if nudged_worst[0] > max_nudged:
         raise AssertionError(f'{label}: a {nudge} move of the inputs moves {nudged_worst[1]} by '
                              f'{nudged_worst[0]:.3e} of its norm on the CPU: too sensitive to '
@@ -1258,12 +1285,17 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
             ok = rel <= rtol
         if not (ok and bool(torch.isfinite(card[key]).all())):
             bad.append(key)
+    ratios = {'loss/buffer': worst['loss/buffer max'][0] / rtol,
+              'grad': worst['grad l2'][0] / tol}
     print(f'{label} f32 step, card vs CPU, batch {batch}, {len(want)} tensors; worst '
           + ', '.join(f'{k} {v[0]:.3e} ({v[1]})' for k, v in worst.items())
-          + f'; gradient tol {tol:.3e} of the norm; {time.perf_counter() - t0:.2f} s')
+          + f'; gradient tol {tol:.3e} of the norm; worst/tol: loss/buffer '
+          f'{ratios["loss/buffer"]:.3f}, grad {ratios["grad"]:.3f}; '
+          f'{time.perf_counter() - t0:.2f} s')
     if bad:
         raise AssertionError(f'{label}: on the card, {len(bad)} tensors disagree with the CPU: '
                              + ', '.join(bad[:12]))
+    return ratios
 
 
 def run_cips_train_path(dev, card, **overrides):
@@ -1271,7 +1303,7 @@ def run_cips_train_path(dev, card, **overrides):
     them), full width, bf16: warm-up (the R1 variant at step 0, the plain
     one at step 1), one 16-step cycle with no hand-written kernel launched,
     then one `sample_fn` forward: 41 bias_act launches. Then the f32 step
-    on the card against the CPU.'''
+    on the card against the CPU. Returns the cycle's images/s.'''
     from animeface_tpu_torch.implementations.CIPS import utils as cu
     from animeface_tpu_torch.implementations.StyleGAN3.utils import draw_step_inputs
     from animeface_tpu_torch.nnutils.loss import NonSaturatingLoss
@@ -1289,7 +1321,7 @@ def run_cips_train_path(dev, card, **overrides):
     variants = [run.uses_r1(i) for i in range(first, first + ADA_STEPS)]
     if sum(variants) != 1:
         raise AssertionError(f'expected one R1 step in the CIPS cycle, got {variants}')
-    _cycle('CIPS train', run, real, ADA_STEPS, card, lambda m: (m['g'], m['d']))
+    dt = _cycle('CIPS train', run, real, ADA_STEPS, card, lambda m: (m['g'], m['d']))
     print(f'CIPS train: R1 at cycle step {variants.index(True) + 1}')
     _reset_launches()
     images = run.sample_fn()
@@ -1310,6 +1342,7 @@ def run_cips_train_path(dev, card, **overrides):
         lambda G, real, a: draw_step_inputs(G, real, torch.Generator().manual_seed(6),
                                             a.policy),
         args, run, dev)
+    return args.batch_size * ADA_STEPS / dt
 
 
 def _fastgan_losses(out):
@@ -1324,11 +1357,12 @@ def run_fastgan_path(dev, card, **overrides):
     (`overrides` change them), full width, bf16, ema off: 2 warm-up steps,
     16 timed steps (finite G, D and reconstruction losses, no hand-written
     kernel launched), a finite sample; then the f32 step on the card
-    against the CPU.'''
+    against the CPU. Returns the 16 steps' images/s and the gate's
+    worst/tolerance ratios.'''
     from animeface_tpu_torch.implementations.FastGAN import utils as fu
     from animeface_tpu_torch.nnutils.loss import HingeLoss
 
-    args = fu.default_args(**overrides)
+    args = fu.default_args(**dict(dict(image_size=IMAGE), **overrides))
     print('FastGAN args:', json.dumps(vars(args)))
     run = fu.build_training(args, device=dev, seed=0)
     real = _real_images(args, dev)
@@ -1337,19 +1371,20 @@ def run_fastgan_path(dev, card, **overrides):
         run.train_step(run.state, real)
     torch.cuda.synchronize()
     print(f'FastGAN warm-up (2 steps): {time.perf_counter() - t0:.2f} s')
-    _cycle('FastGAN', run, real, ADA_STEPS, card, _fastgan_losses)
+    dt = _cycle('FastGAN', run, real, ADA_STEPS, card, _fastgan_losses)
     images = run.sample_fn()
     size = args.image_size
     if images.shape != (args.num_test, args.image_channels, size, size) \
             or not bool(torch.isfinite(images).all()):
         raise AssertionError('FastGAN samples are not finite or have the wrong shape')
-    check_step_against_cpu(
+    ratios = check_step_against_cpu(
         'FastGAN', lambda a, d: fu.build_models(a, d),
         lambda G, D, G_ema, g_opt, d_opt: fu.build_train_step(
             G, D, G_ema, g_opt, d_opt, HingeLoss(), args.policy, args.ema),
         lambda G, real, a: fu.draw_step_inputs(G, real, torch.Generator().manual_seed(6),
                                                a.policy),
         args, run, dev)
+    return args.batch_size * ADA_STEPS / dt, ratios
 
 
 def run_stylegan2_diffaugment_path(dev, card, **overrides):
@@ -1375,14 +1410,53 @@ def run_stylegan2_diffaugment_path(dev, card, **overrides):
     return args.batch_size * SG2_DA_STEPS / dt
 
 
+def run_stylegan3_256_path(dev, card, **overrides):
+    '''StyleGAN3 at the BASELINE config's 256px with the recipe's defaults
+    otherwise (DiffAugment 'color,translation', gp_lambda 3 every 16;
+    `overrides` change them), full width, bf16: a warm-up step of each
+    variant (R1 at step 0, plain at 1), one 16-step cycle of 15 plain
+    steps and 1 additive-R1 step with no hand-written kernel launched,
+    images/s, peak memory, one profiled plain step; then G_ema and D in
+    f32 on the card against the CPU on 2 latents.'''
+    from animeface_tpu_torch.implementations.StyleGAN3 import utils as sg3
+
+    args = sg3.default_args(**dict(dict(image_size=IMAGE), **overrides))
+    print('StyleGAN3 256px args:', json.dumps(vars(args)))
+    run = sg3.build_training(args, device=dev, seed=0)
+    real = _real_images(args, dev)
+    t0 = time.perf_counter()
+    for _ in range(2):                        # step 0: R1, step 1: plain
+        run.train_step(run.state, real)
+    torch.cuda.synchronize()
+    print(f'StyleGAN3 256px warm-up (2 steps, one per variant): {time.perf_counter() - t0:.2f} s')
+    first = run.state['step']
+    variants = [run.uses_r1(i) for i in range(first, first + ADA_STEPS)]
+    if sum(variants) != 1 or run.uses_r1(first + ADA_STEPS):
+        raise AssertionError(f'expected one R1 step in the cycle and a plain one after it, '
+                             f'got {variants}')
+    _cycle('StyleGAN3 256px', run, real, ADA_STEPS, card, lambda m: (m['g'], m['d']))
+    print(f'StyleGAN3 256px: R1 at cycle step {variants.index(True) + 1}')
+    check_models_against_cpu(run, args, dev, label='StyleGAN3 256px')
+
+
 # ------------------------------------------------------------ the training CLI
 
 #: (recipe, flags, steps, save interval, steps after the resume, timed window
-#: [first, last) of step indices: no snapshot and no R1 step inside)
+#: [first, last) of step indices: no snapshot and no R1 step inside; WGAN-gp's
+#: holds critic and G steps alike)
 CLI_RUNS = {
     'ADA': ((), 20, 10, 24, (1, 9)),
     'StyleGAN2': (('--image-size', str(IMAGE)), 17, 16, 18, (1, 15)),
+    'DCGAN': (('--image-size', '64'), 20, 10, 24, (1, 9)),
+    'WGAN_gp': (('--image-size', '64'), 20, 10, 25, (1, 9)),
+    'GAN': (('--image-size', '64'), 10, 5, 12, (1, 4)),
+    'WGAN': (('--image-size', '64'), 10, 5, 12, (1, 4)),
+    'CIPS': ((), 17, 16, 18, (1, 15)),
+    'FastGAN': (('--image-size', str(IMAGE)), 17, 16, 18, (1, 15)),
 }
+#: the sample grids of the recipes that set them: (images, images a row)
+CLI_GRIDS = {'DCGAN': (16, 4), 'GAN': (16, 4), 'WGAN': (25, 5), 'WGAN_gp': (25, 5),
+             'CIPS': (16, 4), 'FastGAN': (16, 4)}
 
 
 def _variant_recorder(module, seen):
@@ -1405,17 +1479,45 @@ def _variant_recorder(module, seen):
     return orig, build
 
 
-def run_cli_path(recipe, card, direct_ips, want_line):
+def _png_size(path):
+    '''(width, height) from a PNG's IHDR chunk.'''
+    with open(path, 'rb') as f:
+        head = f.read(24)
+    return tuple(int.from_bytes(head[i:i + 4], 'big') for i in (16, 20))
+
+
+def _grid_size(n, nrow, size, pad=2):
+    '''`utils/misc.py:_grid_uint8`'s (width, height) for n images.'''
+    ncol = min(nrow, n)
+    return ncol * (size + pad) + pad, -(-n // ncol) * (size + pad) + pad
+
+
+def _cli_module(recipe):
+    '''The module whose `run_training` (and `build_train_step`) the recipe's
+    CLI calls.'''
+    from animeface_tpu_torch.implementations.DCGAN import utils as du
+    from animeface_tpu_torch.implementations.FastGAN import utils as fu
+    from animeface_tpu_torch.implementations.StyleGAN2 import utils as su
+    from animeface_tpu_torch.implementations.StyleGAN3 import utils as sg3
+    return {'StyleGAN2': su, 'ADA': sg3, 'CIPS': sg3, 'FastGAN': fu}.get(recipe, du)
+
+
+def run_cli_path(recipe, card, direct_ips=None, want_line=(0, 0)):
     '''`python -m animeface_tpu_torch <recipe> --synthetic-data` in-process
     through `__main__.main`, at the recipe's defaults (full width, bf16,
-    batch 32; `CLI_RUNS` sets the steps), then `--resume` from its
-    checkpoint directory. Checks: the line kernels' launches over the first
-    run (`want_line` a step: (forward, backward)) and no other hand-written
-    kernel; the artifacts; finite losses; every step took the variant of
-    its index (lazy R1 for StyleGAN2, additive R1 for ADA) and the resumed
-    run went on from the restored step with the checkpoint's state. Prints
-    images/s over the timed window beside `direct_ips`, the loader's time
-    a batch, and each checkpoint's seconds and MiB.'''
+    batch 32; `CLI_RUNS` sets the image size and the steps), then
+    `--resume` from its checkpoint directory. Checks, in each run: the line
+    kernels' launches (`want_line` a step: (forward, backward)), CIPS's 41
+    bias_act launches for each sample forward of a snapshot, and no other
+    hand-written kernel; the artifacts (the grids' size from `CLI_GRIDS`,
+    FastGAN's `recon.jpg`); finite losses; every step took the variant of
+    its index (lazy R1 for StyleGAN2, additive R1 for ADA and CIPS, G steps
+    where (i + 1) % n_critic == 0 for the WGANs) and the resumed run went
+    on from the restored step with the checkpoint's state; WGAN's D within
+    +-clip_value. Prints images/s and ms a step over the timed window
+    (beside `direct_ips`, a direct `build_training` run's, where given),
+    the loader's time a batch, and each checkpoint's seconds and MiB.
+    Returns the result directory and the bias_act launches of both runs.'''
     import os
     from animeface_tpu_torch import checkpoint as ckpt_mod
     from animeface_tpu_torch.__main__ import main as cli_main
@@ -1425,7 +1527,7 @@ def run_cli_path(recipe, card, direct_ips, want_line):
     from animeface_tpu_torch.utils import argument
 
     flags, steps, save, resume_to, (t_first, t_last) = CLI_RUNS[recipe]
-    module = su if recipe == 'StyleGAN2' else sg3
+    module = _cli_module(recipe)
     root = os.environ['ANIMEFACE_IMPLEMENTATIONS_DIR']
     if argument.IMPLEMENTATIONS_DIR != root:
         raise AssertionError(f'result_dir writes to {argument.IMPLEMENTATIONS_DIR}, not {root}')
@@ -1433,14 +1535,15 @@ def run_cli_path(recipe, card, direct_ips, want_line):
     ckpt_dir = os.path.join(out, 'checkpoint')
     argv = [recipe, '--synthetic-data', *flags, '--max-iters', str(steps), '--save', str(save)]
 
-    seen, stamps, entries, loads, saves, statuses = [], {}, [], [], [], []
-    orig_build, build = _variant_recorder(module, seen)
+    seen, stamps, entries, loads, saves, statuses, samples = [], {}, [], [], [], [], [0]
+    recorded = module in (su, sg3)
+    orig_build, build = _variant_recorder(module, seen) if recorded else (None, None)
     orig_run_training = module.run_training
     orig_getitem = SyntheticImage.__getitem__
     orig_save = ckpt_mod.Checkpointer.save
 
     def run_training(**kw):
-        inner = kw['train_step']
+        inner, sample = kw['train_step'], kw['sample_fn']
 
         def train_step(state, batch):
             i = state['run']['step']
@@ -1451,7 +1554,11 @@ def run_cli_path(recipe, card, direct_ips, want_line):
                 torch.cuda.synchronize()
                 stamps[i] = time.perf_counter()
             return inner(state, batch)
-        result = orig_run_training(**dict(kw, train_step=train_step))
+
+        def sample_fn(state):
+            samples[0] += 1
+            return sample(state)
+        result = orig_run_training(**dict(kw, train_step=train_step, sample_fn=sample_fn))
         statuses.append(result[1])
         return result
 
@@ -1469,21 +1576,33 @@ def run_cli_path(recipe, card, direct_ips, want_line):
         saves.append((step, time.perf_counter() - t0, size / 2 ** 20))
         return path
 
-    module.build_train_step, module.run_training = build, run_training
+    def launched(run_steps):
+        '''Check one run's launches against the path's; returns bias_act's.'''
+        counts = _launches()
+        want = (CIPS_BIAS_ACT_PER_FORWARD * samples[0] if recipe == 'CIPS' else 0, 0, 0, 0,
+                want_line[0] * run_steps, want_line[1] * run_steps)
+        if counts != want:
+            raise AssertionError(f'{recipe} CLI launches {counts} (bias_act, filtered_lrelu, '
+                                 f'two-pass fwd/bwd, line fwd/bwd), want {want}')
+        return counts
+
+    if recorded:
+        module.build_train_step = build
+    module.run_training = run_training
     SyntheticImage.__getitem__, ckpt_mod.Checkpointer.save = getitem, timed_save
     try:
+        torch.cuda.reset_peak_memory_stats()
         _reset_launches()
         t0 = time.perf_counter()
         cli_main(argv)
         wall = time.perf_counter() - t0
-        counts = _launches()
+        counts = launched(steps)
+        first_samples = samples[0]
         first = list(seen)
-        want = (0, 0, 0, 0, want_line[0] * steps, want_line[1] * steps)
-        if counts != want:
-            raise AssertionError(f'{recipe} CLI launches {counts} (bias_act, filtered_lrelu, '
-                                 f'two-pass fwd/bwd, line fwd/bwd), want {want}')
         files = os.listdir(out)
         want_files = {f'{save}.png', f'{steps}.png', f'G_{steps}.pt', 'checkpoint'}
+        if recipe == 'FastGAN':
+            want_files.add('recon.jpg')
         if want_files - set(files) or not any(f.startswith('args-') for f in files):
             raise AssertionError(f'{recipe} CLI artifacts {sorted(files)} lack '
                                  f'{sorted(want_files - set(files))} or args-*.json')
@@ -1497,13 +1616,17 @@ def run_cli_path(recipe, card, direct_ips, want_line):
 
         seen.clear()
         entries.clear()
+        samples[0] = 0
         _reset_launches()
         t0 = time.perf_counter()
         cli_main(argv + ['--resume', ckpt_dir, '--max-iters', str(resume_to)])
         resume_wall = time.perf_counter() - t0
+        resume_counts = launched(resume_to - steps)
         resumed = list(seen)
     finally:
-        module.build_train_step, module.run_training = orig_build, orig_run_training
+        if recorded:
+            module.build_train_step = orig_build
+        module.run_training = orig_run_training
         SyntheticImage.__getitem__, ckpt_mod.Checkpointer.save = orig_getitem, orig_save
 
     a = meta['args']           # the run's arguments, as strings
@@ -1514,13 +1637,41 @@ def run_cli_path(recipe, card, direct_ips, want_line):
                     float(a['pl_lambda']) > 0 and i % int(a['g_k']) == 0 and i != 0)
         return (float(a['gp_lambda']) > 0 and i % int(a['gp_every']) == 0, False)
 
-    for label, got, span in (('run', first, range(steps)),
-                             ('resume', resumed, range(steps, resume_to))):
-        want = [(i,) + rule(i) for i in span]
-        if [(i, bool(r1), bool(pl)) for i, r1, pl in got] != want:
-            raise AssertionError(f'{recipe} CLI {label}: steps and variants {got}, want {want}')
+    if recorded:
+        for label, got, span in (('run', first, range(steps)),
+                                 ('resume', resumed, range(steps, resume_to))):
+            want = [(i,) + rule(i) for i in span]
+            if [(i, bool(r1), bool(pl)) for i, r1, pl in got] != want:
+                raise AssertionError(f'{recipe} CLI {label}: steps and variants {got}, '
+                                     f'want {want}')
     if statuses[-1].batches_done != resume_to:
         raise AssertionError(f'{recipe} CLI resume ended at {statuses[-1].batches_done}')
+    final = os.path.join(ckpt_dir, f'ckpt-{resume_to}')
+    with open(os.path.join(final, 'meta.json')) as f:
+        final_losses = json.load(f)['status']['loss']
+    if len(final_losses['d' if 'd' in final_losses else 'D']) != resume_to:
+        raise AssertionError(f'{recipe} CLI: the resumed loss history is not {resume_to} long')
+    variants = ''
+    if recipe.startswith('WGAN'):
+        n_critic = int(a['n_critic'])
+        g_at = [i for i, g in enumerate(final_losses['g']) if g != 0]
+        if g_at != [i for i in range(resume_to) if (i + 1) % n_critic == 0]:
+            raise AssertionError(f'{recipe} CLI: G steps at {g_at}, want every {n_critic}th')
+        variants = f', G steps at {g_at} (run and resume)'
+    if recipe == 'WGAN':
+        D = torch.load(os.path.join(final, 'state.pt'), map_location='cpu',
+                       weights_only=True)['D']
+        top = max(float(v.abs().max()) for k, v in D.items() if not k.startswith('norms.')
+                  or k.endswith(('weight', 'bias')))
+        if top > float(a['clip_value']):
+            raise AssertionError(f'WGAN CLI: a D parameter reaches {top} > {a["clip_value"]}')
+        variants += f', D parameters within +-{top:.4f}'
+    if recipe in CLI_GRIDS:
+        n, nrow = CLI_GRIDS[recipe]
+        size = int(a['image_size'])
+        got = _png_size(os.path.join(out, f'{resume_to}.png'))
+        if got != _grid_size(n, nrow, size):
+            raise AssertionError(f'{recipe} CLI grid {got}, want {n} images {nrow} a row')
     if 'ada' in saved:
         restored = entries[0]
         for k, v in saved['ada'].items():
@@ -1532,21 +1683,100 @@ def run_cli_path(recipe, card, direct_ips, want_line):
 
     B, size = int(a['batch_size']), int(a['image_size'])
     n = t_last - t_first
-    ips = B * n / (stamps[t_last] - stamps[t_first])
+    window = stamps[t_last] - stamps[t_first]
+    ips = B * n / window
     r1_at = [i for i, r1, _ in first + resumed if r1]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'{recipe} CLI: {steps} steps then resumed to {resume_to} ({wall:.2f} s and '
-          f'{resume_wall:.2f} s wall, set-up included), R1 at steps {r1_at}, line launches '
-          f'{counts[4]}/{counts[5]} in the first run')
-    print(f'{recipe} CLI: {ips:.2f} images/s over steps {t_first}-{t_last - 1} ({n} steps, '
-          f'batch {B}, {size}px, bf16, loader and Status included) against '
-          f'{direct_ips:.2f} images/s of the direct build_training run ({ips / direct_ips:.3f} '
-          f'of it) on {card}')
+          f'{resume_wall:.2f} s wall, set-up included, peak device memory {peak:.2f} GiB)'
+          + (f', R1 at steps {r1_at}' if recorded else '') + variants
+          + f', line launches {counts[4]}/{counts[5]} in the first run')
+    if recipe == 'CIPS':
+        print(f'CIPS CLI: bias_act launches {counts[0]} and {resume_counts[0]} '
+              f'({CIPS_BIAS_ACT_PER_FORWARD} for each of {first_samples} and {samples[0]} '
+              'sample forwards), none inside the steps')
+    print(f'{recipe} CLI: {ips:.2f} images/s, {window / n * 1e3:.1f} ms a step over steps '
+          f'{t_first}-{t_last - 1} ({n} steps, batch {B}, {size}px, bf16, loader and Status '
+          'included)'
+          + (f' against {direct_ips:.2f} images/s of the direct build_training run '
+             f'({ips / direct_ips:.3f} of it)' if direct_ips else '') + f' on {card}')
     per_batch = sum(loads) / (len(loads) / B)
     print(f'{recipe} CLI loader: {per_batch * 1e3:.1f} ms a batch of {B} synthetic '
           f'{size}px images ({len(loads)} images, one producer thread) on {card}')
     for step, secs, mib in saves:
         print(f'{recipe} CLI checkpoint ckpt-{step}: {secs:.3f} s, {mib:.1f} MiB on {card}')
     print(card)
+    return out, counts[0] + resume_counts[0]
+
+
+def run_direct_steps(recipe, dev, card, steps=10):
+    '''The recipe's `build_training` at the image size of its CLI phase and
+    its defaults otherwise (full width, batch 32, bf16) on one batch of
+    reals, without the loader and Status: a warm-up over one n_critic cycle
+    (5 steps), then `steps` steps (their variants as the cadence gives).
+    Returns the images/s, the CLI phase's `direct_ips`.'''
+    from animeface_tpu_torch.implementations.DCGAN import utils as du
+    from animeface_tpu_torch.implementations.GAN import utils as gu
+    from animeface_tpu_torch.implementations.WGAN import utils as wu
+    from animeface_tpu_torch.implementations.WGAN_gp import utils as wgu
+
+    module = dict(DCGAN=du, GAN=gu, WGAN=wu, WGAN_gp=wgu)[recipe]
+    args = module.default_args(image_size=int(CLI_RUNS[recipe][0][1]))
+    run = module.build_training(args, device=dev, seed=0)
+    real = _real_images(args, dev)
+    for _ in range(5):
+        run.train_step(run.state, real)
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    losses = [run.train_step(run.state, real)['d'] for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _check_no_launches(f'{recipe} direct')
+    if not all(bool(torch.isfinite(v)) for v in losses):
+        raise AssertionError(f'{recipe} direct: non-finite D loss')
+    ips = args.batch_size * steps / dt
+    print(f'{recipe} direct: {steps} steps, batch {args.batch_size}, {args.image_size}px, full '
+          f'width, bf16: {dt * 1e3 / steps:.2f} ms a step, {ips:.2f} images/s on {card}')
+    return ips
+
+
+def check_cli_step_against_cpu(recipe, out, dev):
+    '''The f32 step of DCGAN (its only variant) or WGAN-gp (the full step,
+    the penalty's double backward included) on the card against the CPU
+    at batch 2 (`check_step_against_cpu`), from the weights and running
+    statistics of the CLI run's last checkpoint under `out`.'''
+    import os
+    from animeface_tpu_torch import checkpoint as ckpt_mod
+    from animeface_tpu_torch.implementations.DCGAN import utils as du
+    from animeface_tpu_torch.implementations.WGAN_gp import utils as wgu
+    from animeface_tpu_torch.nnutils.loss import GANLoss, WGANLoss
+
+    ckpt_dir = os.path.join(out, 'checkpoint')
+    latest = os.path.join(ckpt_dir, f'ckpt-{ckpt_mod.Checkpointer(ckpt_dir).latest_step()}')
+    state = torch.load(os.path.join(latest, 'state.pt'), map_location='cpu', weights_only=True)
+    with open(os.path.join(latest, 'meta.json')) as f:
+        ran = json.load(f)['args']            # the run's arguments, as strings
+    sizes = dict(image_size=int(ran['image_size']), latent_dim=int(ran['latent_dim']))
+    if recipe == 'DCGAN':
+        args = du.default_args(**sizes)
+        draw, loss = du.draw_step_inputs, GANLoss()
+
+        def make_step(G, D, G_ema, g_opt, d_opt):
+            return du.build_train_step(G, D, g_opt, d_opt, loss)
+    else:
+        args = wgu.default_args(**sizes, gp_gamma=float(ran['gp_gamma']))
+        draw, loss = wgu.draw_step_inputs, WGANLoss()
+
+        def make_step(G, D, G_ema, g_opt, d_opt):
+            return wgu.build_steps(G, D, g_opt, d_opt, loss, args.gp_gamma)['full']
+    G, D = du.build_models(args, 'cpu')
+    G.load_state_dict(state['G'])
+    D.load_state_dict(state['D'])
+    return check_step_against_cpu(
+        recipe, lambda a, d: du.build_models(a, d) + (None,), make_step,
+        lambda G, real, a: draw(G, real, torch.Generator().manual_seed(6)),
+        args, SimpleNamespace(G=G, D=D), dev)
 
 
 def main() -> int:
@@ -1565,6 +1795,7 @@ def main() -> int:
 def run_all() -> int:
     from animeface_tpu_torch import _build, resolve_device
 
+    t_start = time.perf_counter()
     dev = resolve_device('cuda')
     card = _card_line()
     print(card)
@@ -1604,17 +1835,36 @@ def run_all() -> int:
     torch.cuda.empty_cache()
     bias_act_entry['launches'] = run_cips_path(dev, card)
     kernels += [bias_act_entry, flrelu_entry]
-    for path in (run_cips_train_path, run_fastgan_path):
-        torch.cuda.empty_cache()
-        path(dev, card)
+    torch.cuda.empty_cache()
+    cips_ips = run_cips_train_path(dev, card)
+    torch.cuda.empty_cache()
+    fastgan_ips, _ = run_fastgan_path(dev, card)
     torch.cuda.empty_cache()
     sg2_ips = run_stylegan2_diffaugment_path(dev, card)
 
     torch.cuda.empty_cache()
     run_cli_path('ADA', card, ada_ips, want_line=(6, 2))
     torch.cuda.empty_cache()
-    run_cli_path('StyleGAN2', card, sg2_ips, want_line=(0, 0))
+    run_cli_path('StyleGAN2', card, sg2_ips)
 
+    # the other BASELINE configs (StyleGAN3 256px, DCGAN and WGAN-gp 64px,
+    # FastGAN 256px through the CLI), GAN and WGAN on DCGAN's runtime, CIPS
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    run_stylegan3_256_path(dev, card)
+    print(f'phase StyleGAN3 256px: {time.perf_counter() - t:.1f} s')
+    for recipe in ('DCGAN', 'WGAN_gp', 'GAN', 'WGAN', 'CIPS', 'FastGAN'):
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        direct = {'CIPS': cips_ips, 'FastGAN': fastgan_ips}.get(recipe)
+        if direct is None:
+            direct = run_direct_steps(recipe, dev, card)
+        out, _ = run_cli_path(recipe, card, direct)
+        if recipe in ('DCGAN', 'WGAN_gp'):
+            check_cli_step_against_cpu(recipe, out, dev)
+        print(f'phase {recipe} CLI: {time.perf_counter() - t:.1f} s')
+
+    print(f'chip_smoke total: {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(card)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

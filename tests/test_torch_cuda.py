@@ -13,6 +13,11 @@ filtered_lrelu) compute in f32 and round once, as their plain versions do:
 documented bf16 tolerance; one rounding step either way).
 '''
 
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -612,3 +617,41 @@ def test_kernels_refuse_grad(cuda):
         ops.bias_act(x, b, act='lrelu', impl='cuda')
         ops.filtered_lrelu(x, f, f, b, up=2, down=2, padding=11, impl='cuda')
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------- the recipes' CLI
+
+#: small widths at 32px for the DCGAN family, CIPS and FastGAN
+CLI_RECIPES = {
+    'DCGAN': ('--latent-dim', '8'),
+    'GAN': ('--latent-dim', '8'),
+    'WGAN': ('--latent-dim', '8'),
+    'WGAN_gp': ('--latent-dim', '8'),
+    'CIPS': ('--num-layers', '2', '--latent-dim', '128', '--style-dim', '128', '--g-channels',
+             '8', '--g-max-channels', '128', '--d-channels', '8', '--d-max-channels', '16'),
+    'FastGAN': ('--latent-dim', '8', '--g-channels', '4', '--g-max-channels', '16',
+                '--d-channels', '4', '--d-max-channels', '16', '--init-down-size', '32',
+                '--decoder-image-size', '16', '--ema'),
+}
+
+
+@pytest.mark.parametrize('recipe', sorted(CLI_RECIPES))
+def test_recipe_cli_on_the_card(cuda, tmp_path, recipe):
+    '''`python -m animeface_tpu_torch <recipe> --synthetic-data` on the
+    card (bf16) for 5 steps, then `--resume` to 6: both exit 0 and leave
+    the grids and the last checkpoint.'''
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = tmp_path / recipe / 'result'
+    argv = [sys.executable, '-m', 'animeface_tpu_torch', recipe, '--synthetic-data',
+            '--num-images', '64', '--image-size', '32', '--batch-size', '8', '--save', '5',
+            '--log-file', str(tmp_path / 'log.txt'), *CLI_RECIPES[recipe]]
+    env = dict(os.environ, ANIMEFACE_IMPLEMENTATIONS_DIR=str(tmp_path))
+    env.pop('ANIMEFACE_PLATFORM', None)
+    for extra in (['--max-iters', '5'],
+                  ['--max-iters', '6', '--resume', str(out / 'checkpoint')]):
+        proc = subprocess.run(argv + extra, cwd=root, env=env, capture_output=True, text=True,
+                              timeout=600)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+    assert {'5.png', '6.png', 'G_6.pt'} <= set(os.listdir(out))
+    state = torch.load(out / 'checkpoint' / 'ckpt-6' / 'state.pt', weights_only=True)
+    assert state['run']['step'] == 6

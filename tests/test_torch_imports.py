@@ -41,6 +41,14 @@ REQUIRED = (
     'animeface_tpu_torch.implementations.ADA.utils',
     'animeface_tpu_torch.implementations.FastGAN.model',
     'animeface_tpu_torch.implementations.FastGAN.utils',
+    'animeface_tpu_torch.implementations.DCGAN.model',
+    'animeface_tpu_torch.implementations.DCGAN.utils',
+    'animeface_tpu_torch.implementations.GAN.model',
+    'animeface_tpu_torch.implementations.GAN.utils',
+    'animeface_tpu_torch.implementations.WGAN.utils',
+    'animeface_tpu_torch.implementations.WGAN_gp.utils',
+    'animeface_tpu_torch.nnutils.batchnorm',
+    'animeface_tpu_torch.nnutils.optim',
     'animeface_tpu_torch.__main__',
     'animeface_tpu_torch.checkpoint',
     'animeface_tpu_torch.dataset',

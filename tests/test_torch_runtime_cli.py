@@ -19,20 +19,22 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ('tqdm', 'PIL', 'matplotlib', 'sklearn', 'jax', 'animeface_tpu')
 RUNNER = '''
 import json, runpy, sys
-for name in %r:
+for name in json.loads(sys.argv[2]):
     sys.modules[name] = None          # any import of these now raises
 for argv in json.loads(sys.argv[1]):
     sys.argv = ['animeface_tpu_torch', *argv]
     runpy.run_module('animeface_tpu_torch', run_name='__main__', alter_sys=True)
-''' % (BLOCKED,)
+'''
 SG3_FLAGS = ('--num-layers', '4', '--channels', '8', '--max-channels', '32', '--style-dim', '32',
              '--latent-dim', '32', '--d-channels', '8', '--d-max-channels', '32',
              '--gp-every', '2')
 
 
-def run_cli(tmp_path, name, iters, save, resume_to, flags=(), image_size=32, batch=8):
+def run_cli(tmp_path, name, iters, save, resume_to, flags=(), image_size=32, batch=8,
+            blocked=BLOCKED):
     '''`name` for `iters` steps, then `--resume` to `resume_to`, in one
-    subprocess, f32 on the CPU. Returns its result directory.'''
+    subprocess, f32 on the CPU, with the modules `blocked` unimportable.
+    Returns its result directory.'''
     argv = [name, '--synthetic-data', '--num-images', '64', '--image-size', str(image_size),
             '--batch-size', str(batch), '--max-iters', str(iters), '--save', str(save),
             '--no-bf16', *flags]
@@ -42,11 +44,12 @@ def run_cli(tmp_path, name, iters, save, resume_to, flags=(), image_size=32, bat
     # spins its full thread pool among them slows down many times over
     env = dict(os.environ, ANIMEFACE_PLATFORM='cpu', ANIMEFACE_IMPLEMENTATIONS_DIR=str(tmp_path),
                OMP_NUM_THREADS='1')
-    proc = subprocess.run([sys.executable, '-c', RUNNER, json.dumps([argv, resume])], cwd=ROOT,
-                          env=env, capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, '-c', RUNNER, json.dumps([argv, resume]),
+                           json.dumps(blocked)], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert f'[resume] from {out / "checkpoint"} @ step {iters}' in proc.stdout + proc.stderr
-    for what in ('tqdm', 'PIL', 'matplotlib'):
+    for what in {'tqdm', 'PIL', 'matplotlib'} & set(blocked):
         assert what in proc.stderr          # one warning each: no bar, no running.jpg, no plot
     return out
 
