@@ -1,6 +1,7 @@
 '''JAX package parameters -> the port's `state_dict`, for StyleGAN2 and
-StyleGAN3 G and D, the CIPS G, FastGAN's G and D, and the G and D of
-DCGAN (also WGAN's and WGAN-gp's) and GAN.
+StyleGAN3 G and D, the CIPS G, FastGAN's G and D, the G and D of DCGAN
+(also WGAN's and WGAN-gp's) and GAN, and the metrics' InceptionV3 and VGG
+trunks.
 
 Input: a flax params tree (nested dicts of numpy arrays, as
 `jax.device_get(variables['params'])` gives). Output: a dict of float32
@@ -20,7 +21,8 @@ StyleGAN2 below; StyleGAN3 (`convert_stylegan3_generator`,
 is StyleGAN3's) and FastGAN (`convert_fastgan_generator`,
 `convert_fastgan_discriminator`), DCGAN (`convert_dcgan_generator`,
 `convert_dcgan_discriminator`) and GAN (`convert_gan_generator`,
-`convert_gan_discriminator`) after it.
+`convert_gan_discriminator`), InceptionV3 (`convert_inception`) and VGG
+(`convert_vgg`) after it.
 
 Generator:                                 port
   map/ELRDense_i                           map.layers.i
@@ -341,4 +343,37 @@ def convert_gan_discriminator(params, image_shape) -> dict:
     out['layers.0.bias'] = _t(dense[0]['bias'])
     for i, pd in enumerate(dense[1:], start=1):
         _dense(pd, f'layers.{i}', out)
+    return out
+
+
+# ---------------------------------------------------------------- the metrics' trunks
+
+def convert_inception(variables) -> dict:
+    '''InceptionV3 variables ({'params', 'batch_stats'}, the layout of
+    `tools/convert_inception_weights.py`'s .npz) -> `InceptionV3Features`'s
+    state dict: every `<path>/conv` kernel HWIO -> `<path>.conv.weight`
+    OIHW, every `<path>/bn` scale, bias, mean, var -> `<path>.bn.weight`,
+    `.bias`, `.running_mean`, `.running_var`.'''
+    out = {}
+
+    def walk(p, s, prefix):
+        for name, sub in p.items():
+            path = f'{prefix}{name}'
+            if name == 'conv':
+                _conv(sub, path, out)
+            elif name == 'bn':
+                _batch_norm(sub, s[name], path, out)
+            else:
+                walk(sub, s[name], f'{path}.')
+
+    walk(variables['params'], variables['batch_stats'], '')
+    return out
+
+
+def convert_vgg(params) -> dict:
+    '''`VGGFeatures` params (conv{block}_{i}/{kernel HWIO, bias}) -> the
+    port's `VGGFeatures` state dict (conv{block}_{i}.{weight OIHW, bias}).'''
+    out = {}
+    for name, p in params.items():
+        _conv(p, name, out)
     return out

@@ -107,7 +107,28 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      WGAN-gp's runs, the f32 step (WGAN-gp's full step, double backward
      included) on the card against the CPU; each phase's wall time and
      the run's total;
- 15. print one JSON line of the kernels, the card line, and last
+ 15. the metrics, on the snapshots that phase 12 left in place: the
+     InceptionV3 extractor at full size on random weights that do not
+     collapse (He-normal kernels, BN variances in [0.5, 1.5], from a fixed
+     seed, written to a temporary .npz in the converter's layout and read
+     through ANIMEFACE_INCEPTION_WEIGHTS), in f32 on the card against the
+     CPU on 2 images of 256px (the resize to 299 included) within 1e-3 of
+     the features' scale, its images/s at batch 64 and peak memory; the
+     port's statistics, Frechet distance and KID (4 subsets) of two sets of
+     2560 features in f64 on the card against a numpy copy of the same
+     formulas within 1e-9 relative; `fid_cli.main` in-process on the
+     StyleGAN2 CLI run's newest G_<step>.pt (256px, 2048 samples, batch 64,
+     --kid: finite FID and KID, the seconds of the real stream, the fake
+     stream, the statistics and the KID); `fid_trend.main` in-process on
+     the ADA CLI run's result directory (128px, latent 512, 512 samples:
+     trend.json with a finite fd for every snapshot, exit 0 when the gate
+     holds and 1 when it fails, the verdict printed); `VGGLoss(vgg=16)` at
+     256px, batch 32, f32 (finite losses and gradient with respect to the
+     fakes, ms a forward plus backward; at batch 2 the card against the
+     CPU: the losses within 1e-3, each gradient in L2 within 1e-3 + 2 S of
+     its norm, S from three nudges as in the step gate); no hand-written
+     kernel launched; its wall time;
+ 16. print one JSON line of the kernels, the card line, and last
      {"ok": true, "device": {...}}.
 The card-vs-CPU step gate (`check_step_against_cpu`) takes S, the
 gradients' sensitivity to a 1e-6 move of the inputs, as the largest over
@@ -1779,6 +1800,371 @@ def check_cli_step_against_cpu(recipe, out, dev):
         args, SimpleNamespace(G=G, D=D), dev)
 
 
+# --------------------------------------------------------------------- the metrics
+
+METRICS_IMAGE = 256            # the StyleGAN2 CLI phase's size
+METRICS_BATCH = 64             # fid_cli's default batch
+STATS_BATCHES = 40             # 2560 features a set: full-rank 2048-dim covariances
+KID_SUBSETS = 4                # the numpy copy's KID stays short
+VGG_BATCH = 32
+FID_SAMPLES = 2048             # fid_cli's --num-samples
+TREND_SAMPLES = 512            # fid_trend's --num-samples
+METRICS_RTOL = 1e-9            # the port's statistics against the numpy copy
+
+
+def write_inception_weights(path, seed=0):
+    '''Random InceptionV3 weights whose features do not collapse, written to
+    `path` in the converter's layout: He-normal conv kernels, BN scales in
+    [0.8, 1.2], small BN biases and means, BN variances in [0.5, 1.5].'''
+    from animeface_tpu_torch.convert_weights import inception_npz
+    from animeface_tpu_torch.metrics.inception import InceptionV3Features
+
+    rng = np.random.default_rng(seed)
+    state = {}
+    for key, v in InceptionV3Features().state_dict().items():
+        shape = tuple(v.shape)
+        if key.endswith('conv.weight'):
+            a = rng.normal(0, np.sqrt(2.0 / v[0].numel()), shape)
+        elif key.endswith('running_var'):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif key.endswith('bn.weight'):
+            a = rng.uniform(0.8, 1.2, shape)
+        else:
+            a = rng.normal(0, 0.1, shape)
+        state[key] = a.astype(np.float32)
+    np.savez(path, **inception_npz(state))
+
+
+def _metric_images(kind, n, size, dev, g):
+    '''`n` images in [-1, 1]: 'noise' uniform per pixel, 'smooth' the same
+    noise averaged over 8x8 cells and upsampled (another distribution).'''
+    x = torch.rand((n, 3, size, size), generator=g, device=dev) * 2 - 1
+    if kind == 'smooth':
+        x = torch.nn.functional.interpolate(torch.nn.functional.avg_pool2d(x, 8) * 4,
+                                            size=(size, size), mode='bilinear').clamp(-1, 1)
+    return x
+
+
+def check_inception(dev, card):
+    '''The extractor in f32 on the card against the CPU on 2 images of
+    METRICS_IMAGE px (the resize to 299 included): within 1e-3 of the
+    features' scale. Then STATS_BATCHES batches of METRICS_BATCH of each of
+    two image sets: the extractor's images/s and peak memory. Returns the
+    two sets' features.'''
+    from animeface_tpu_torch.metrics.inception import make_extractor
+
+    extract, extract_cpu = make_extractor(device=dev), make_extractor(device='cpu')
+    x = _metric_images('noise', 2, METRICS_IMAGE, 'cpu', torch.Generator().manual_seed(3))
+    want = extract_cpu(x)
+    got = extract(x.to(dev)).cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    print(f'inception features card vs CPU: max abs err {err:.3e} at scale {scale:.4f} '
+          f'(std {float(want.std()):.4f}; tolerance {1e-3 * scale:.3e})')
+    if not (got.shape == (2, 2048) and err <= 1e-3 * scale and float(want.std()) > 1e-2 * scale):
+        raise AssertionError(f'inception: card vs CPU {err:.3e} at scale {scale:.4f}, '
+                             f'or the features collapse')
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    for kind in ('noise', 'smooth'):                 # warm-up: cuDNN autotunes
+        extract(_metric_images(kind, METRICS_BATCH, METRICS_IMAGE, dev, g))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    feats, dt = {'noise': [], 'smooth': []}, 0.0
+    for _ in range(STATS_BATCHES):
+        for kind in feats:
+            images = _metric_images(kind, METRICS_BATCH, METRICS_IMAGE, dev, g)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats[kind].append(extract(images))
+            torch.cuda.synchronize()
+            dt += time.perf_counter() - t0
+    n = 2 * STATS_BATCHES * METRICS_BATCH
+    print(f'inception extractor: {n} images of {METRICS_IMAGE}px resized to 299, batch '
+          f'{METRICS_BATCH}, f32: {n / dt:.1f} images/s, peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on {card}')
+    return torch.cat(feats['noise']), torch.cat(feats['smooth'])
+
+
+def _np_statistics(f):
+    f = np.asarray(f, np.float64)
+    n = f.shape[0]
+    mu = f.sum(axis=0) / n
+    return mu, (f.T @ f - n * np.outer(mu, mu)) / (n - 1)
+
+
+def _np_sqrtm_psd(m):
+    vals, vecs = np.linalg.eigh((m + m.T) / 2.0)
+    return (vecs * np.sqrt(np.clip(vals, 0.0, None))) @ vecs.T
+
+
+def _np_frechet(mu1, s1, mu2, s2):
+    half = _np_sqrtm_psd(s2)
+    diff = mu1 - mu2
+    return float(diff @ diff + np.trace(s1) + np.trace(s2)
+                 - 2.0 * np.trace(_np_sqrtm_psd(half @ s1 @ half)))
+
+
+def _np_kid(x, y, num_subsets, subset_size, seed):
+    rng = np.random.default_rng(seed)
+    x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+    n = min(subset_size, x.shape[0], y.shape[0])
+
+    def k(a, b):
+        return (a @ b.T / a.shape[1] + 1.0) ** 3
+
+    total = 0.0
+    for _ in range(num_subsets):
+        xi = x[rng.choice(x.shape[0], n, replace=False)]
+        yi = y[rng.choice(y.shape[0], n, replace=False)]
+        kxx, kyy, kxy = k(xi, xi), k(yi, yi), k(xi, yi)
+        total += ((kxx.sum() - np.trace(kxx)) / (n * (n - 1))
+                  + (kyy.sum() - np.trace(kyy)) / (n * (n - 1)) - 2 * kxy.mean())
+    return float(total / num_subsets)
+
+
+def check_fid_statistics(fa, fb, card):
+    '''The port's statistics, Frechet distance and KID (KID_SUBSETS subsets
+    of 1000) on the card in f64 against the numpy copy of the same
+    formulas on the host: within METRICS_RTOL relative.'''
+    from animeface_tpu_torch.metrics.fid import compute_kid, frechet_distance, gaussian_statistics
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (mu_a, s_a), (mu_b, s_b) = gaussian_statistics(fa), gaussian_statistics(fb)
+    fd = frechet_distance(mu_a, s_a, mu_b, s_b)
+    t1 = time.perf_counter()
+    kid = compute_kid(fa, fb, num_subsets=KID_SUBSETS, subset_size=1000, seed=0)
+    t2 = time.perf_counter()
+    na, nb = fa.double().cpu().numpy(), fb.double().cpu().numpy()
+    (mu_a_np, s_a_np), (mu_b_np, s_b_np) = _np_statistics(na), _np_statistics(nb)
+    fd_np = _np_frechet(mu_a_np, s_a_np, mu_b_np, s_b_np)
+    t3 = time.perf_counter()
+    kid_np = _np_kid(na, nb, KID_SUBSETS, 1000, 0)
+    t4 = time.perf_counter()
+
+    def rel(got, want):
+        got = got.cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    errs = {'mu': max(rel(mu_a, mu_a_np), rel(mu_b, mu_b_np)),
+            'cov': max(rel(s_a, s_a_np), rel(s_b, s_b_np)),
+            'fd': rel(fd, fd_np), 'kid': rel(kid, kid_np)}
+    print(f'fid statistics of {fa.shape[0]} + {fb.shape[0]} features: FD {fd:.6f} (numpy '
+          f'{fd_np:.6f}), KID over {KID_SUBSETS} subsets {kid:.8f} (numpy {kid_np:.8f}); '
+          'relative errors ' + ', '.join(f'{k} {v:.2e}' for k, v in errs.items())
+          + f'; port on the card {t1 - t0:.3f} s (statistics and FD) + {t2 - t1:.3f} s '
+          f'(KID), numpy on the host {t3 - t2:.3f} s + {t4 - t3:.3f} s on {card}')
+    bad = {k: v for k, v in errs.items() if not v <= METRICS_RTOL}
+    if bad or not (np.isfinite(fd) and np.isfinite(kid)):
+        raise AssertionError(f'fid statistics against numpy: {bad}, FD {fd}, KID {kid}')
+
+
+def run_fid_cli(sg2_out, card):
+    '''`fid_cli.main` in-process on the StyleGAN2 CLI phase's newest
+    `G_<step>.pt` at 256px, FID_SAMPLES samples, batch 64, with KID: the FID and
+    KID finite; the seconds of the real stream, the fake stream, the
+    statistics and the KID.'''
+    import glob
+    import os
+    from animeface_tpu_torch.metrics import fid as fid_mod
+    from animeface_tpu_torch.metrics import fid_cli
+
+    snaps = sorted(glob.glob(os.path.join(sg2_out, 'G_*.pt')),
+                   key=lambda p: int(os.path.basename(p)[2:-3]))
+    marks = {}
+    orig_fid, orig_kid = fid_mod.compute_fid, fid_mod.compute_kid
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks[name] = time.perf_counter()
+
+    def timed_fid(real, fake, extract, **kw):
+        def fake_stream():
+            mark('real')
+            yield from fake
+
+        def timed_extract(images):
+            out = extract(images)
+            mark('fake')
+            return out
+
+        mark('start')
+        try:
+            return orig_fid(real, fake_stream(), timed_extract, **kw)
+        finally:
+            mark('fid')
+
+    def timed_kid(*a, **kw):
+        mark('kid streams')
+        try:
+            return orig_kid(*a, **kw)
+        finally:
+            mark('kid')
+
+    argv = ['--weights', snaps[-1], '--image-size', str(METRICS_IMAGE), '--synthetic-data',
+            '--num-samples', str(FID_SAMPLES), '--batch-size', str(METRICS_BATCH), '--kid']
+    fid_mod.compute_fid, fid_mod.compute_kid = timed_fid, timed_kid
+    try:
+        t0 = time.perf_counter()
+        out = fid_cli.main(argv)
+        dt = time.perf_counter() - t0
+    finally:
+        fid_mod.compute_fid, fid_mod.compute_kid = orig_fid, orig_kid
+    if not (np.isfinite(out['fid']) and np.isfinite(out['kid'])):
+        raise AssertionError(f'fid_cli: FID {out["fid"]}, KID {out["kid"]}')
+    print(f'fid_cli on {os.path.basename(snaps[-1])}: FID {out["fid"]:.4f}, KID '
+          f'{out["kid"]:.6f}; {dt:.1f} s: real stream {marks["real"] - marks["start"]:.1f} s, '
+          f'fake stream {marks["fake"] - marks["real"]:.1f} s, statistics '
+          f'{marks["fid"] - marks["fake"]:.2f} s, KID streams '
+          f'{marks["kid streams"] - marks["fid"]:.1f} s, KID (100 subsets of 1000) '
+          f'{marks["kid"] - marks["kid streams"]:.3f} s on {card}')
+
+
+def run_fid_trend(ada_out, card):
+    '''`fid_trend.main` in-process on the ADA CLI phase's result directory
+    at 128px, latent 512, TREND_SAMPLES samples: `trend.json` with a finite fd for
+    every snapshot, exit 0 when the gate holds and 1 when it fails (after
+    20 steps the verdict is the run's quality; it is printed).'''
+    import glob
+    import os
+    from animeface_tpu_torch.metrics import fid_trend
+
+    steps = sorted(int(os.path.basename(p)[2:-3]) for p in glob.glob(os.path.join(ada_out, 'G_*.pt')))
+    t0 = time.perf_counter()
+    try:
+        fid_trend.main(['--result-dir', ada_out, '--model', 'ADA', '--image-size', str(ADA_IMAGE),
+                        '--latent-dim', '512', '--synthetic-data', '--num-samples',
+                        str(TREND_SAMPLES)])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    dt = time.perf_counter() - t0
+    with open(os.path.join(ada_out, 'trend.json')) as f:
+        report = json.load(f)
+    fds = [r['fd'] for r in report['results']]
+    if ([r['step'] for r in report['results']] != steps or not all(np.isfinite(fds))
+            or code != (0 if report['gate_ok'] else 1)):
+        raise AssertionError(f'fid_trend: exit {code}, snapshots {steps}, report {report}')
+    print(f'fid_trend on the ADA CLI run (G_{", G_".join(map(str, steps))}): fd '
+          + ' -> '.join(f'{v:.4f}' for v in fds)
+          + f'; gate {"OK" if report["gate_ok"] else "FAILED"} (exit {code}; the verdict of '
+          f'{steps[-1]} steps of training, not of the port); {dt:.1f} s on {card}')
+
+
+VGG_LOSSES = ('style_loss', 'content_loss', 'vgg_loss')
+
+
+def _vgg_grads(lossf, real, fake):
+    '''{loss name: (value, gradient with respect to `fake`)}, f64 on the CPU.'''
+    out = {}
+    for name in VGG_LOSSES:
+        f = fake.clone().requires_grad_(True)
+        value = getattr(lossf, name)(real, f)
+        value.backward()
+        out[name] = (value.detach().double().cpu(), f.grad.double().cpu())
+    return out
+
+
+def check_vgg_loss(dev, card, batch=2, rtol=1e-3, nudge=1e-6, nudges=3):
+    '''`VGGLoss(vgg=16)` (the fixed-seed fallback weights) at 256px, batch
+    VGG_BATCH, f32: the style, content and vgg losses and the gradient of
+    their sum with respect to the fakes finite, ms for a forward plus
+    backward of the three. Then each loss and its gradient at `batch` on
+    the card against the CPU: the losses within `rtol` of their value, the
+    gradients in L2 within (`rtol` + 2 S) of their norm, S the largest
+    relative L2 change of a CPU gradient when the reals and fakes move by
+    `nudge` * N(0, 1), over `nudges` draws (ReLU inputs near 0 and near-tied
+    max-pool windows switch under f32 rounding, as in
+    `check_step_against_cpu`).'''
+    import warnings
+    from animeface_tpu_torch.nnutils.loss.vgg import VGGLoss
+
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')          # the provenance line says it
+        loss, loss_cpu = VGGLoss(device=dev, vgg=16), VGGLoss(device='cpu', vgg=16)
+
+    def run(real, fake):
+        fake = fake.clone().requires_grad_(True)
+        values = [getattr(loss, name)(real, fake) for name in VGG_LOSSES]
+        sum(values).backward()
+        return [v.detach() for v in values], fake.grad
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    real = _metric_images('smooth', VGG_BATCH, METRICS_IMAGE, dev, g)
+    fake = _metric_images('noise', VGG_BATCH, METRICS_IMAGE, dev, g)
+    run(real, fake)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 5
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        values, grad = run(real, fake)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    values = [float(v) for v in values]
+    if not (all(np.isfinite(values)) and bool(torch.isfinite(grad).all())):
+        raise AssertionError(f'VGGLoss: losses {values} or the gradient are not finite')
+    print(f'VGGLoss(vgg=16) at {METRICS_IMAGE}px, batch {VGG_BATCH}, f32: style, content, vgg '
+          f'{values[0]:.6g}, {values[1]:.6g}, {values[2]:.6g}; {ms:.1f} ms a forward plus '
+          f'backward of the three, peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on {card}')
+
+    real2, fake2 = real[:batch].cpu(), fake[:batch].cpu()
+    t0 = time.perf_counter()
+    want = _vgg_grads(loss_cpu, real2, fake2)
+    got = _vgg_grads(loss, real2.to(dev), fake2.to(dev))
+    moved = []
+    for k in range(nudges):
+        gk = torch.Generator().manual_seed(7 + k)
+        moved.append(_vgg_grads(loss_cpu, real2 + nudge * torch.randn(real2.shape, generator=gk),
+                                fake2 + nudge * torch.randn(fake2.shape, generator=gk)))
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    S = max(rel_l2(m[n][1], want[n][1]) for m in moved for n in VGG_LOSSES)
+    tol = rtol + 2 * S
+    loss_errs = [abs(float(got[n][0] - want[n][0])) / abs(float(want[n][0])) for n in VGG_LOSSES]
+    grad_errs = [rel_l2(got[n][1], want[n][1]) for n in VGG_LOSSES]
+    print(f'VGGLoss card vs CPU at batch {batch}, {METRICS_IMAGE}px (style, content, vgg): '
+          f'losses {", ".join(f"{e:.2e}" for e in loss_errs)} (tolerance {rtol}); gradients '
+          f'{", ".join(f"{e:.2e}" for e in grad_errs)} of their norm (tolerance {tol:.3e}, S '
+          f'{S:.3e} over {nudges} nudges of {nudge}); {time.perf_counter() - t0:.1f} s')
+    if S > 0.1 or max(loss_errs) > rtol or max(grad_errs) > tol:
+        raise AssertionError(f'VGGLoss card vs CPU: losses {loss_errs}, gradients {grad_errs}, '
+                             f'S {S}')
+
+
+def run_metrics_path(dev, card, sg2_out, ada_out):
+    '''The metrics (`animeface_tpu_torch/metrics/`, `nnutils/loss/vgg.py`):
+    the Inception extractor on random weights that do not collapse (loaded
+    through ANIMEFACE_INCEPTION_WEIGHTS from a temporary .npz), its
+    statistics, FD and KID against numpy, `fid_cli` on the StyleGAN2 CLI
+    run's snapshot, `fid_trend` on the ADA CLI run's, and `VGGLoss`; no
+    hand-written kernel launched.'''
+    import os
+    import tempfile
+    from animeface_tpu_torch.metrics.inception import WEIGHTS_ENV
+
+    _reset_launches()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_inception_') as tmp:
+        os.environ[WEIGHTS_ENV] = os.path.join(tmp, 'inception.npz')
+        try:
+            write_inception_weights(os.environ[WEIGHTS_ENV])
+            fa, fb = check_inception(dev, card)
+            check_fid_statistics(fa, fb, card)
+            del fa, fb
+            run_fid_cli(sg2_out, card)
+        finally:
+            del os.environ[WEIGHTS_ENV]
+    torch.cuda.empty_cache()
+    run_fid_trend(ada_out, card)
+    torch.cuda.empty_cache()
+    check_vgg_loss(dev, card)
+    _check_no_launches('metrics')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this run needs one GPU', file=sys.stderr)
@@ -1843,9 +2229,9 @@ def run_all() -> int:
     sg2_ips = run_stylegan2_diffaugment_path(dev, card)
 
     torch.cuda.empty_cache()
-    run_cli_path('ADA', card, ada_ips, want_line=(6, 2))
+    ada_out, _ = run_cli_path('ADA', card, ada_ips, want_line=(6, 2))
     torch.cuda.empty_cache()
-    run_cli_path('StyleGAN2', card, sg2_ips)
+    sg2_out, _ = run_cli_path('StyleGAN2', card, sg2_ips)
 
     # the other BASELINE configs (StyleGAN3 256px, DCGAN and WGAN-gp 64px,
     # FastGAN 256px through the CLI), GAN and WGAN on DCGAN's runtime, CIPS
@@ -1863,6 +2249,12 @@ def run_all() -> int:
         if recipe in ('DCGAN', 'WGAN_gp'):
             check_cli_step_against_cpu(recipe, out, dev)
         print(f'phase {recipe} CLI: {time.perf_counter() - t:.1f} s')
+
+    # the metrics, on the StyleGAN2 and ADA CLI runs' snapshots
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    run_metrics_path(dev, card, sg2_out, ada_out)
+    print(f'phase metrics: {time.perf_counter() - t:.1f} s')
 
     print(f'chip_smoke total: {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))

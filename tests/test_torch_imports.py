@@ -62,6 +62,14 @@ REQUIRED = (
     'animeface_tpu_torch.utils.argument',
     'animeface_tpu_torch.utils.misc',
     'animeface_tpu_torch.utils.status',
+    'animeface_tpu_torch.convert_weights',
+    'animeface_tpu_torch.metrics',
+    'animeface_tpu_torch.metrics.fid',
+    'animeface_tpu_torch.metrics.inception',
+    'animeface_tpu_torch.metrics.trend',
+    'animeface_tpu_torch.metrics.fid_cli',
+    'animeface_tpu_torch.metrics.fid_trend',
+    'animeface_tpu_torch.nnutils.loss.vgg',
 )
 
 
