@@ -1,7 +1,7 @@
 '''JAX package parameters -> the port's `state_dict`, for StyleGAN2 and
 StyleGAN3 G and D, the CIPS G, FastGAN's G and D, the G and D of DCGAN
-(also WGAN's and WGAN-gp's) and GAN, and the metrics' InceptionV3 and VGG
-trunks.
+(also WGAN's and WGAN-gp's) and GAN, PGGAN's and StyleGAN (v1)'s G and D,
+and the metrics' InceptionV3 and VGG trunks.
 
 Input: a flax params tree (nested dicts of numpy arrays, as
 `jax.device_get(variables['params'])` gives). Output: a dict of float32
@@ -21,8 +21,10 @@ StyleGAN2 below; StyleGAN3 (`convert_stylegan3_generator`,
 is StyleGAN3's) and FastGAN (`convert_fastgan_generator`,
 `convert_fastgan_discriminator`), DCGAN (`convert_dcgan_generator`,
 `convert_dcgan_discriminator`) and GAN (`convert_gan_generator`,
-`convert_gan_discriminator`), InceptionV3 (`convert_inception`) and VGG
-(`convert_vgg`) after it.
+`convert_gan_discriminator`), PGGAN (`convert_pggan_generator`,
+`convert_pggan_discriminator`), StyleGAN v1 (`convert_stylegan1_generator`,
+`convert_stylegan1_discriminator`), InceptionV3 (`convert_inception`) and
+VGG (`convert_vgg`) after it.
 
 Generator:                                 port
   map/ELRDense_i                           map.layers.i
@@ -377,3 +379,75 @@ def convert_vgg(params) -> dict:
     for name, p in params.items():
         _conv(p, name, out)
     return out
+
+
+# -------------------------------------------------------- PGGAN and StyleGAN v1
+#
+# The runtime coefficients stay in the modules, so the port trains the raw
+# parameters JAX trains. PGGAN generator:            port
+#   block_d/ELRConv_i                                blocks.d.convs.i
+#   block_0/kernel_t [4, 4, in, out], flipped in H   blocks.0.kernel_t [in, out, 4, 4]
+#     and W (JAX's conv_transpose does not flip it,
+#     F.conv_transpose2d does)
+#   to_rgb_d                                         to_rgb.d
+# StyleGAN v1 generator adds:
+#   mapping/ELRDense_i                               mapping.layers.i
+#   const [1, 4, 4, S]                               const [1, S, 4, 4]
+#   block_d/LayerEpilogue_i/noise_scale              blocks.d.epilogues.i.noise_scale
+#   block_d/LayerEpilogue_i/AdaIN_0/ELRDense_0       blocks.d.epilogues.i.adain.style
+# Discriminator (both):
+#   from_rgb_d                                       from_rgb.d
+#   block_d/ELRConv_i                                blocks.d.convs.i
+
+def _blocks(params):
+    '''(d, params of block_<d>) for each block.'''
+    for key, block in params.items():
+        if key.startswith('block_'):
+            yield int(key.rsplit('_', 1)[1]), block
+
+
+def _progressive_heads(params, prefix, out):
+    for key in params:
+        if key.startswith(prefix + '_'):
+            _conv(params[key], f'{prefix}.{int(key.rsplit("_", 1)[1])}', out)
+
+
+def _progressive_convs(block, prefix, out):
+    for i, p in enumerate(_indexed(block, 'ELRConv')):
+        _conv(p, f'{prefix}.convs.{i}', out)
+
+
+def convert_pggan_generator(params) -> dict:
+    out = {}
+    for d, block in _blocks(params):
+        if 'kernel_t' in block:
+            k = np.asarray(block['kernel_t'])[::-1, ::-1]             # [4, 4, in, out]
+            out[f'blocks.{d}.kernel_t'] = _t(k.transpose(2, 3, 0, 1))
+        _progressive_convs(block, f'blocks.{d}', out)
+    _progressive_heads(params, 'to_rgb', out)
+    return out
+
+
+def convert_pggan_discriminator(params) -> dict:
+    out = {}
+    for d, block in _blocks(params):
+        _progressive_convs(block, f'blocks.{d}', out)
+    _progressive_heads(params, 'from_rgb', out)
+    return out
+
+
+def convert_stylegan1_generator(params) -> dict:
+    out = {}
+    for i, p in enumerate(_indexed(params['mapping'], 'ELRDense')):
+        _dense(p, f'mapping.layers.{i}', out)
+    out['const'] = _t(np.asarray(params['const']).transpose(0, 3, 1, 2))
+    for d, block in _blocks(params):
+        _progressive_convs(block, f'blocks.{d}', out)
+        for i, epi in enumerate(_indexed(block, 'LayerEpilogue')):
+            out[f'blocks.{d}.epilogues.{i}.noise_scale'] = _t(epi['noise_scale'])
+            _dense(epi['AdaIN_0']['ELRDense_0'], f'blocks.{d}.epilogues.{i}.adain.style', out)
+    _progressive_heads(params, 'to_rgb', out)
+    return out
+
+
+convert_stylegan1_discriminator = convert_pggan_discriminator

@@ -19,9 +19,19 @@ cannot score (fewer than two snapshots, or no card and neither `--cpu` nor
         --result-dir .../ADA/result --model ADA \
         --image-size 128 --synthetic-data --latent-dim 512
 
-PGGAN is among the choices but not ported yet (ROADMAP Queue 1 item 8).
-The numbers are NOT FID and must not be compared with published values;
-the gate is strictly relative.
+    # PGGAN (the default model): each G_<step>.json sidecar records the
+    # phase geometry the snapshot was saved under
+    python -m animeface_tpu_torch.metrics.fid_trend \
+        --result-dir .../PGGAN/result --image-size 128 --synthetic-data
+
+PGGAN snapshots are progressive: a sidecar `G_<step>.json` beside each
+`G_<step>.pt` records its {resolution, depth, mode, alpha}; samples are
+drawn at that geometry and resized bilinearly up to `--image-size` (a
+snapshot without one is sampled at full depth, mode 's', alpha 1), so
+fds across resolutions also reflect the upsampling blur: expect a step at
+each growth boundary. `trend.json` records each snapshot's alpha, and its
+resolution where its sidecar gives one. The numbers are NOT FID and must
+not be compared with published values; the gate is strictly relative.
 '''
 
 from __future__ import annotations
@@ -37,7 +47,28 @@ import torch
 
 
 def pggan_model(args, device):
-    raise NotImplementedError('PGGAN is not ported yet (ROADMAP Queue 1 item 8)')
+    '''PGGAN's G at `max_depth` = RESOLUTIONS.index(--image-size), in
+    float32; each snapshot sampled at its sidecar's depth, mode and alpha.'''
+    import torch.nn.functional as F
+    from animeface_tpu_torch.implementations.PGGAN.model import Generator, RESOLUTIONS
+
+    if args.image_size not in RESOLUTIONS:
+        raise ValueError(f'PGGAN grows to {RESOLUTIONS}, not {args.image_size}px')
+    max_depth = RESOLUTIONS.index(args.image_size)
+    G = Generator(latent_dim=args.latent_dim, max_depth=max_depth).to(device)
+
+    @torch.no_grad()
+    def sample(gen, snap_meta):
+        depth = snap_meta['depth']
+        z = torch.randn((args.batch_size, args.latent_dim), generator=gen, device=device)
+        images = G(z, max_depth if depth is None else depth, snap_meta.get('mode', 's'),
+                   float(snap_meta.get('alpha', 1.0)))
+        if images.shape[-1] != args.image_size:
+            images = F.interpolate(images, size=(args.image_size, args.image_size),
+                                   mode='bilinear', align_corners=False, antialias=False)
+        return images
+
+    return G, sample
 
 
 def stylegan2_model(args, device):
@@ -47,7 +78,7 @@ def stylegan2_model(args, device):
                   channels=args.channels, max_channels=args.max_channels).to(device)
 
     @torch.no_grad()
-    def sample(gen):
+    def sample(gen, snap_meta):
         z = torch.randn((args.batch_size, args.style_dim), generator=gen, device=device)
         return G(z, noise=gen)[0]
 
@@ -66,7 +97,7 @@ def stylegan3_model(args, device):
                   style_dim=args.style_dim).to(device)
 
     @torch.no_grad()
-    def sample(gen):
+    def sample(gen, snap_meta):
         return G(torch.randn((args.batch_size, args.latent_dim), generator=gen, device=device))
 
     return G, sample
@@ -127,7 +158,11 @@ def main(argv=None):
         print(f'need >= 2 numbered snapshots in {args.result_dir}, '
               f'found {len(snaps)}', file=sys.stderr)
         sys.exit(2)
-    G, sample = MODELS[args.model](args, device)
+    try:
+        G, sample = MODELS[args.model](args, device)
+    except ValueError as e:
+        print(f'error: {e}', file=sys.stderr)
+        sys.exit(2)
 
     accel = Accelerator(device)
     loader_args = EasyDict(
@@ -144,19 +179,26 @@ def main(argv=None):
     extract = make_trend_extractor(device=device)
     ref_stats = trend_statistics(real_stream(), extract, max_samples=args.num_samples)
 
-    def fake_stream():
+    def fake_stream(snap_meta):
         gen = torch.Generator(device=device).manual_seed(args.seed + 1)
         while True:
-            yield sample(gen)
+            yield sample(gen, snap_meta)
 
     results = []
     for step, path in snaps:
+        snap_meta = dict(depth=None, mode='s', alpha=1.0)
+        sidecar = path[:-len('.pt')] + '.json'
+        if os.path.exists(sidecar):
+            with open(sidecar) as f:
+                snap_meta.update(json.load(f))
         load_model(path, G)
         fd = trend_fd(ref_stats, trend_statistics(
-            fake_stream(), extract, max_samples=args.num_samples))
-        results.append(dict(step=step, fd=fd))
-        print(f'[trend] step {step:>7}  fd {fd:12.4f}  {args.image_size}px alpha 1.00',
-              flush=True)
+            fake_stream(snap_meta), extract, max_samples=args.num_samples))
+        results.append(dict(step=step, fd=fd, **{
+            k: snap_meta[k] for k in ('resolution', 'alpha') if k in snap_meta}))
+        print(f'[trend] step {step:>7}  fd {fd:12.4f}  '
+              f'{snap_meta.get("resolution", args.image_size)}px '
+              f'alpha {snap_meta.get("alpha", 1.0):.2f}', flush=True)
 
     gate_ok = bool(results[-1]['fd'] < results[0]['fd'])
     out = dict(metric='random-vgg frechet trend (relative only)',

@@ -59,8 +59,10 @@ class Accelerator:
         self.bf16 = bf16
         if self.device.type == 'cuda':
             # the settings the card's f32 checks were made under: convolutions
-            # autotuned, no TF32 in matmuls or convolutions
-            torch.backends.cudnn.benchmark = True
+            # autotuned, no TF32 in matmuls or convolutions. A caller that
+            # asked for deterministic algorithms gets no autotuning: it may
+            # pick another algorithm in each process
+            torch.backends.cudnn.benchmark = not torch.are_deterministic_algorithms_enabled()
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
 

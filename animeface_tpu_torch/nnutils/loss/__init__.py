@@ -2,4 +2,5 @@
 
 from animeface_tpu_torch.nnutils.loss.gan import (  # noqa: F401
     Adversarial, GANLoss, HingeLoss, LSGANLoss, NonSaturatingLoss, WGANLoss)
-from animeface_tpu_torch.nnutils.loss.penalty import r1_regularizer  # noqa: F401
+from animeface_tpu_torch.nnutils.loss.penalty import (  # noqa: F401
+    gradient_penalty, r1_regularizer)

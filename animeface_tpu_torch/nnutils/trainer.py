@@ -71,7 +71,7 @@ def default_max_iters(args, loader) -> int:
     return len(loader) * args.default_epochs
 
 
-def _host_images(images) -> np.ndarray:
+def host_images(images) -> np.ndarray:
     '''A sample batch (NCHW tensor) as the NHWC float32 array `save_image` takes.'''
     return images.detach().float().permute(0, 2, 3, 1).cpu().numpy()
 
@@ -121,7 +121,7 @@ def run_training(
                 raise FloatingPointError(f'[{name}] non-finite values in state[{key_name!r}] '
                                          f'at iter {step}; aborting')
         if sample_fn is not None and do_sample:
-            images = _host_images(sample_fn(state))
+            images = host_images(sample_fn(state))
             save_image(images, os.path.join(out_dir, f'{step}.png'), nrow=nrow)
             save_image(images, os.path.join(out_dir, 'running.jpg'), nrow=nrow)
         if ema_params_path is not None:
@@ -153,7 +153,7 @@ def run_training(
             elif sample_interval is not None and status.batches_done > 0 \
                     and status.batches_done % sample_interval_ == 0 \
                     and sample_fn is not None:
-                save_image(_host_images(sample_fn(state)),
+                save_image(host_images(sample_fn(state)),
                            os.path.join(out_dir, f'{status.batches_done}.png'), nrow=nrow)
             if status.batches_done % guard_every == 0:
                 check_sustained_nan(status, name)

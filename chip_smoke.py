@@ -107,7 +107,29 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      WGAN-gp's runs, the f32 step (WGAN-gp's full step, double backward
      included) on the card against the CPU; each phase's wall time and
      the run's total;
- 15. the metrics, on the snapshots that phase 12 left in place: the
+ 15. the progressive recipes, PGGAN then StyleGAN (v1), at the modules'
+     widths (up to 512) and --image-size 128 (max_depth 5; latent 100 and
+     512): the recipe's step at 128px, batch 16, alpha 0.5, in each mode
+     pair the phase machine produces (G_transition, stable, D_transition):
+     first each pair's f32 step on the card against the CPU from the
+     seeded weights (`check_step_against_cpu`; StyleGAN's noise maps
+     zero), then 2 warm-up and 10 timed bf16 steps: finite
+     losses, no hand-written kernel launched, ms a step, images/s, peak
+     memory, one profiled stable step; then the CLI, `python -m
+     animeface_tpu_torch <recipe> --synthetic-data --image-size 128
+     --num-images 64 --save 40`, through all six resolutions in bf16: the
+     phase order D_stab, (G_trans, G_stab, D_trans, D_stab) x 5, alpha from
+     0 to 1 in each transition, finite losses, the grids at each
+     snapshot's resolution, G_<step>.pt with its sidecar G_<step>.json,
+     final.png and G_final.pt, no kernel launched, the seconds of each
+     resolution; for PGGAN, a kill and resume on the card: PGGAN to 16px in
+     f32 in subprocesses with deterministic algorithms, one run
+     uninterrupted and one SIGKILLed after ckpt-18 (the 8 -> 16px growth
+     boundary) and, resumed, after ckpt-21 (inside the 16px G_transition),
+     resumed to the end: G_final.pt bitwise equal (or within 1e-4 of each
+     tensor's scale where a warning names an op without a deterministic
+     kernel); each recipe's wall time;
+ 16. the metrics, on the snapshots that phase 12 left in place: the
      InceptionV3 extractor at full size on random weights that do not
      collapse (He-normal kernels, BN variances in [0.5, 1.5], from a fixed
      seed, written to a temporary .npz in the converter's layout and read
@@ -122,13 +144,15 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      stream, the statistics and the KID); `fid_trend.main` in-process on
      the ADA CLI run's result directory (128px, latent 512, 512 samples:
      trend.json with a finite fd for every snapshot, exit 0 when the gate
-     holds and 1 when it fails, the verdict printed); `VGGLoss(vgg=16)` at
+     holds and 1 when it fails, the verdict printed), and with `--model
+     PGGAN` on the PGGAN CLI run's (128px, each snapshot sampled at its
+     sidecar's resolution and alpha, which are printed); `VGGLoss(vgg=16)` at
      256px, batch 32, f32 (finite losses and gradient with respect to the
      fakes, ms a forward plus backward; at batch 2 the card against the
      CPU: the losses within 1e-3, each gradient in L2 within 1e-3 + 2 S of
      its norm, S from three nudges as in the step gate); no hand-written
      kernel launched; its wall time;
- 16. print one JSON line of the kernels, the card line, and last
+ 17. print one JSON line of the kernels, the card line, and last
      {"ok": true, "device": {...}}.
 The card-vs-CPU step gate (`check_step_against_cpu`) takes S, the
 gradients' sensitivity to a 1e-6 move of the inputs, as the largest over
@@ -1800,6 +1824,303 @@ def check_cli_step_against_cpu(recipe, out, dev):
         args, SimpleNamespace(G=G, D=D), dev)
 
 
+# ---------------------------------------------------- the progressive recipes
+
+PROGRESSIVE_IMAGE = 128        # --image-size: max_depth 5, G and D widths up to 512
+PROGRESSIVE_MODES = (('t', 's'), ('s', 's'), ('s', 't'))   # G_trans, stable, D_trans
+PROGRESSIVE_STEPS = 10         # timed bf16 steps per mode pair, after 2
+PROGRESSIVE_CLI = ('--image-size', str(PROGRESSIVE_IMAGE), '--num-images', '64', '--save', '40')
+PROGRESSIVE_PHASES = (['D_stablization']
+                      + ['G_transition', 'G_stablization', 'D_transition', 'D_stablization'] * 5)
+KILL_IMAGE, KILL_AT = 16, (18, 21)   # the 8 -> 16px growth boundary, then inside its G_transition
+KILL_SAVE = 7                  # no snapshot at step 18: ckpt-18 is the boundary's alone
+KILL_RUNNER = """
+import json, os, runpy, signal, sys
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+kill_at = int(sys.argv[2])
+if kill_at:
+    from animeface_tpu_torch import checkpoint
+    save = checkpoint.Checkpointer.save
+
+    def save_then_kill(self, step, state, meta=None):
+        path = save(self, step, state, meta)
+        if step == kill_at:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return path
+    checkpoint.Checkpointer.save = save_then_kill
+sys.argv = ['animeface_tpu_torch', *json.loads(sys.argv[1])]
+runpy.run_module('animeface_tpu_torch', run_name='__main__', alter_sys=True)
+"""
+
+
+def _progressive_module(recipe):
+    from animeface_tpu_torch.implementations.PGGAN import utils as pu
+    from animeface_tpu_torch.implementations.StyleGAN import utils as su
+    return {'PGGAN': pu, 'StyleGAN': su}[recipe]
+
+
+def run_progressive_steps(recipe, dev, card, image_size=PROGRESSIVE_IMAGE, **overrides):
+    """The recipe's step at `image_size` (full depth, the modules' widths)
+    and the recipe's batch there (`resl2batch_size`: 16 at 128px), alpha
+    0.5, in each mode pair the phase machine produces. First one f32 step
+    of each pair on the card against the CPU at batch 2
+    (`check_step_against_cpu`) from the seeded weights, a state no run on
+    the card has moved, StyleGAN's noise maps zero: a noise_scale's
+    gradient sums noise x upstream over the batch, the pixels and 512
+    channels, where the instance norm that follows leaves the upstream
+    about zero-mean, and in f32 it is rounding: two H100 runs from the
+    same inputs gave 4.225e-2 and 9.054e-2 of its norm from the CPU (the
+    CPU parity tests hold the noise path against JAX, float64 included).
+    Then, per pair, 2 warm-up and PROGRESSIVE_STEPS
+    timed steps in bf16: finite losses, no hand-written kernel launched, ms
+    a step, images/s, peak memory, one profiled stable step. Returns {mode
+    pair: images/s}."""
+    from animeface_tpu_torch.implementations.PGGAN import config
+    from animeface_tpu_torch.implementations.PGGAN.model import RESOLUTIONS
+    from animeface_tpu_torch.nnutils.rng import make_generator
+
+    module = _progressive_module(recipe)
+    args = module.default_args(image_size=image_size,
+                               batch_size=config.resl2batch_size[image_size], **overrides)
+    depth = RESOLUTIONS.index(image_size)
+    G, D = module.build_models(args, dev, seed=0)
+    loss = module.RECIPE.loss()
+    real = _real_images(args, dev)
+
+    def make(G, D, g_opt, d_opt, g_mode, d_mode):
+        inner = module.build_train_step(G, D, g_opt, d_opt, loss, args.gp_lambda,
+                                        args.drift_epsilon, depth, g_mode, d_mode)
+
+        def step(state, real, draws=None):
+            state.setdefault('alpha', torch.full((), 0.5, device=real.device))
+            state.setdefault('alpha_delta', torch.zeros((), device=real.device))
+            return inner(state, real, draws)
+        return step
+
+    def draw(G, real, a):
+        draws = module.draw_step_inputs(G, real, torch.Generator().manual_seed(6), depth)
+        if 'noise' in draws:
+            draws['noise'] = [torch.zeros_like(m) for m in draws['noise']]
+        return draws
+
+    for g_mode, d_mode in PROGRESSIVE_MODES:
+        check_step_against_cpu(
+            f'{recipe} {image_size}px ({g_mode}, {d_mode})',
+            lambda a, d: module.build_models(a, d) + (None,),
+            lambda G, D, G_ema, g_opt, d_opt: make(G, D, g_opt, d_opt, g_mode, d_mode),
+            draw, args, SimpleNamespace(G=G, D=D), dev)
+
+    ips = {}
+    for g_mode, d_mode in PROGRESSIVE_MODES:
+        label = f'{recipe} {image_size}px ({g_mode}, {d_mode})'
+        g_opt, d_opt = _progressive_module('PGGAN').make_optimizers(G, D, image_size)
+        step = make(G, D, g_opt, d_opt, g_mode, d_mode)
+        state = dict(step=0, generator=make_generator(0, dev))
+        for _ in range(2):
+            step(state, real)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        losses = [step(state, real) for _ in range(PROGRESSIVE_STEPS)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _check_no_launches(label)
+        values = [float(m[k]) for m in losses for k in ('d', 'g')]
+        if not all(np.isfinite(values)):
+            raise AssertionError(f'{label}: non-finite loss: {values}')
+        B = args.batch_size
+        ips[(g_mode, d_mode)] = B * PROGRESSIVE_STEPS / dt
+        print(f'{label}: {PROGRESSIVE_STEPS} steps, batch {B}, full width, bf16: '
+              f'{dt * 1e3 / PROGRESSIVE_STEPS:.2f} ms a step, {ips[(g_mode, d_mode)]:.2f} '
+              f'images/s, peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} '
+              f'GiB on {card}')
+        if (g_mode, d_mode) == ('s', 's'):
+            profile_step(label, step, state, real)
+        del step, state, g_opt, d_opt
+    return ips
+
+
+def _epoch_groups(epochs):
+    """Consecutive epochs of one (phase, resolution) merged: [(phase,
+    resolution, alphas)]."""
+    groups = []
+    for e in epochs:
+        if groups and groups[-1][:2] == (e['phase'], e['resolution']):
+            groups[-1][2].extend(e['alphas'])
+        else:
+            groups.append((e['phase'], e['resolution'], list(e['alphas'])))
+    return groups
+
+
+def run_progressive_cli(recipe, card, flags=PROGRESSIVE_CLI, want_phases=PROGRESSIVE_PHASES):
+    """`python -m animeface_tpu_torch <recipe> --synthetic-data` through
+    every resolution to PROGRESSIVE_IMAGE, in-process, bf16. Checks: the
+    phase order `want_phases` (Step.get_mode is read once an epoch), alpha
+    from 0 to 1 in every transition phase, finite losses, the grids at
+    each snapshot's resolution, G_<step>.pt with its sidecar, final.png
+    and G_final.pt, no hand-written kernel launched. Prints the seconds of
+    each resolution (checkpoints and snapshots included) and its steps.
+    Returns the result directory."""
+    import os
+    from animeface_tpu_torch.__main__ import main as cli_main
+    pu = _progressive_module('PGGAN')
+
+    root = os.environ['ANIMEFACE_IMPLEMENTATIONS_DIR']
+    out = os.path.join(root, recipe, 'result')
+    epochs = []
+    orig_get_mode, orig_build = pu.Step.get_mode, pu.build_train_step
+
+    def get_mode(self):
+        torch.cuda.synchronize()
+        epochs.append(dict(phase=self.current_phase, resolution=self.current_resolution,
+                           t=time.perf_counter(), alphas=[]))
+        return orig_get_mode(self)
+
+    def build(*a, **k):
+        step = orig_build(*a, **k)
+
+        def recorded(state, real, draws=None):
+            epochs[-1]['alphas'].append(state['alpha'])
+            return step(state, real, draws)
+        return recorded
+
+    pu.Step.get_mode, pu.build_train_step = get_mode, build
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        cli_main([recipe, '--synthetic-data', *flags])
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        pu.Step.get_mode, pu.build_train_step = orig_get_mode, orig_build
+    _check_no_launches(f'{recipe} CLI')
+
+    groups = _epoch_groups(epochs)
+    if [g[0] for g in groups] != want_phases:
+        raise AssertionError(f'{recipe} CLI phases {[g[:2] for g in groups]}')
+    for phase, resl, alphas in groups:
+        a = [float(v) for v in alphas]
+        if phase.endswith('transition') and not (
+                a[0] == 0.0 and a[-1] == 1.0 and all(x <= y for x, y in zip(a, a[1:]))):
+            raise AssertionError(f'{recipe} CLI {phase} {resl}px: alpha {a}')
+    steps = sum(len(e['alphas']) for e in epochs)
+    files = set(os.listdir(out))
+    snaps = sorted(int(f[2:-3]) for f in files if f.startswith('G_') and f[2:-3].isdigit())
+    if not snaps or not {'final.png', 'G_final.pt', 'checkpoint'} <= files:
+        raise AssertionError(f'{recipe} CLI artifacts {sorted(files)}')
+    for k in snaps:
+        with open(os.path.join(out, f'G_{k}.json')) as f:
+            side = json.load(f)
+        if _png_size(os.path.join(out, f'{k}.png')) != _grid_size(16, 4, side['resolution']):
+            raise AssertionError(f'{recipe} CLI: {k}.png is not 16 images at {side}')
+    if _png_size(os.path.join(out, 'final.png')) != _grid_size(16, 4, groups[-1][1]):
+        raise AssertionError(f'{recipe} CLI: final.png is not at {groups[-1][1]}px')
+    ckpt_dir = os.path.join(out, 'checkpoint')
+    last = max(int(n.split('-')[1]) for n in os.listdir(ckpt_dir) if n.startswith('ckpt-'))
+    with open(os.path.join(ckpt_dir, f'ckpt-{last}', 'meta.json')) as f:
+        loss = json.load(f)['status']['loss']
+    if last != steps or not all(np.isfinite(v) for k in ('d', 'g') for v in loss[k]):
+        raise AssertionError(f'{recipe} CLI: {steps} steps, last checkpoint {last}, or '
+                             'non-finite losses')
+
+    per_resl = {}
+    for e, nxt in zip(epochs, epochs[1:] + [dict(t=t_end)]):
+        secs, n = per_resl.get(e['resolution'], (0.0, 0))
+        per_resl[e['resolution']] = (secs + nxt['t'] - e['t'], n + len(e['alphas']))
+    print(f'{recipe} CLI to {groups[-1][1]}px: {steps} steps in {t_end - t0:.2f} s '
+          f'(set-up and the final artifacts included), {len(groups)} phases in order, alpha '
+          f'0 -> 1 in each transition, snapshots {snaps} with sidecars, peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on {card}')
+    print(f'{recipe} CLI seconds per resolution (steps): '
+          + ', '.join(f'{r}px {s:.2f} s ({n})' for r, (s, n) in sorted(per_resl.items())))
+    return out
+
+
+def run_progressive_kill_resume(card, image_size=KILL_IMAGE, kills=KILL_AT, save=KILL_SAVE,
+                                env=None):
+    """PGGAN to `image_size` in f32, in subprocesses with deterministic
+    algorithms (`torch.use_deterministic_algorithms(True, warn_only=True)`,
+    CUBLAS_WORKSPACE_CONFIG=:4096:8, cuDNN autotuning off), in lanes side
+    by side: one run uninterrupted and, for each checkpoint of `kills`, one
+    killed with SIGKILL right after publishing it and resumed from its
+    checkpoint directory to the end. The first kill must land on a growth
+    boundary (`opt_fresh`), the second inside a G_transition epoch. Each
+    killed lane's G_final.pt must equal the uninterrupted run's bitwise,
+    or, where a warning names an op without a deterministic kernel, within
+    1e-4 of each tensor's scale."""
+    import concurrent.futures
+    import os
+    import signal
+    import tempfile
+
+    argv = ['PGGAN', '--synthetic-data', '--image-size', str(image_size), '--num-images', '64',
+            '--save', str(save), '--no-bf16']
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_kill_') as tmp:
+        def lane(name, kill_at):
+            env_ = dict(os.environ, **(env or {}), CUBLAS_WORKSPACE_CONFIG=':4096:8',
+                        PYTHONUNBUFFERED='1',
+                        ANIMEFACE_IMPLEMENTATIONS_DIR=os.path.join(tmp, name))
+            ckpt = os.path.join(tmp, name, 'PGGAN', 'result', 'checkpoint')
+            runs, meta = [], None
+            for extra, kill in (([], kill_at), (['--resume', ckpt], 0))[:2 if kill_at else 1]:
+                runs.append(subprocess.run(
+                    [sys.executable, '-c', KILL_RUNNER, json.dumps(argv + extra), str(kill)],
+                    env=env_, capture_output=True, text=True, timeout=600))
+                if kill and runs[-1].returncode == -signal.SIGKILL:
+                    with open(os.path.join(ckpt, f'ckpt-{kill}', 'meta.json')) as f:
+                        meta = json.load(f)
+            want = [0] if not kill_at else [-signal.SIGKILL, 0]
+            for run, code in zip(runs, want):
+                if run.returncode != code:
+                    raise AssertionError(f'PGGAN kill lane {name}: exit {run.returncode}, want '
+                                         f'{code}:\n' + run.stderr[-3000:])
+            resumed = None
+            if kill_at:
+                resumed = next((ln for ln in runs[1].stdout.splitlines()
+                                + runs[1].stderr.splitlines()
+                                if ln.startswith(f'[resume] from {ckpt} @ step {kill_at} ')), None)
+                if resumed is None:
+                    raise AssertionError(f'PGGAN lane {name}: the resume did not start at '
+                                         f'ckpt-{kill_at}')
+            warned = {ln.strip() for run in runs for ln in run.stderr.splitlines()
+                      if 'deterministic' in ln}
+            final = torch.load(os.path.join(tmp, name, 'PGGAN', 'result', 'G_final.pt'),
+                               weights_only=True)
+            return final, meta, resumed, warned
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(1 + len(kills)) as pool:
+            futures = [pool.submit(lane, f'kill{k}' if k else 'base', k) for k in (0, *kills)]
+            (want, _, _, warned), *lanes = [f.result() for f in futures]
+        dt = time.perf_counter() - t0
+    where = [(m['machine']['current_phase'], m['phase_batch_idx'], m['opt_fresh'])
+             for _, m, _, _ in lanes]
+    if len(where) != 2 or not (where[0][1:] == (0, True) and where[1][0] == 'G_transition'
+                               and where[1][1] > 0):
+        raise AssertionError(f'PGGAN kills at {kills} landed at {where}, not at a growth '
+                             'boundary and inside a G_transition epoch')
+    warned = sorted(warned.union(*(w for _, _, _, w in lanes)))
+    notes = []
+    for kill, (got, _, resumed, _) in zip(kills, lanes):
+        unequal = [k for k in want if not torch.equal(got[k], want[k])]
+        worst = max((float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()),
+                                                                 1e-30), k) for k in want)
+        if unequal and not (warned and worst[0] <= 1e-4):
+            raise AssertionError(f'PGGAN killed at ckpt-{kill}: {len(unequal)} of {len(want)} '
+                                 f'tensors of G_final.pt differ (worst {worst}); warnings: '
+                                 f'{warned}')
+        notes.append(f'killed after ckpt-{kill}, resumed at {resumed[resumed.index("("):]}: '
+                     f'{len(want) - len(unequal)} of {len(want)} tensors bitwise equal (worst '
+                     f'{worst[0]:.3e})')
+    print(f'PGGAN kill and resume on the card ({image_size}px, f32, deterministic algorithms), '
+          f'G_final.pt against the uninterrupted run: ' + '; '.join(notes)
+          + f'; nondeterministic-op warnings: {warned or "none"}; {dt:.1f} s for the '
+          f'{1 + len(kills)} lanes on {card}')
+
+
 # --------------------------------------------------------------------- the metrics
 
 METRICS_IMAGE = 256            # the StyleGAN2 CLI phase's size
@@ -2021,35 +2342,43 @@ def run_fid_cli(sg2_out, card):
           f'{marks["kid"] - marks["kid streams"]:.3f} s on {card}')
 
 
-def run_fid_trend(ada_out, card):
-    '''`fid_trend.main` in-process on the ADA CLI phase's result directory
-    at 128px, latent 512, TREND_SAMPLES samples: `trend.json` with a finite fd for
-    every snapshot, exit 0 when the gate holds and 1 when it fails (after
-    20 steps the verdict is the run's quality; it is printed).'''
+def run_fid_trend(out, card, model='ADA', flags=('--image-size', str(ADA_IMAGE),
+                                                 '--latent-dim', '512')):
+    '''`fid_trend.main` in-process on a CLI phase's result directory `out`
+    (by default the ADA run's at 128px, latent 512), TREND_SAMPLES samples:
+    `trend.json` with a finite fd for every snapshot, exit 0 when the gate
+    holds and 1 when it fails (after a short run the verdict is the run's
+    quality; it is printed), the `gate_ok` its exit code gives, and each
+    snapshot's resolution and alpha where its sidecar gives them.'''
     import glob
     import os
     from animeface_tpu_torch.metrics import fid_trend
 
-    steps = sorted(int(os.path.basename(p)[2:-3]) for p in glob.glob(os.path.join(ada_out, 'G_*.pt')))
+    steps = sorted(int(os.path.basename(p)[2:-3]) for p in glob.glob(os.path.join(out, 'G_*.pt'))
+                   if os.path.basename(p)[2:-3].isdigit())
     t0 = time.perf_counter()
     try:
-        fid_trend.main(['--result-dir', ada_out, '--model', 'ADA', '--image-size', str(ADA_IMAGE),
-                        '--latent-dim', '512', '--synthetic-data', '--num-samples',
-                        str(TREND_SAMPLES)])
+        fid_trend.main(['--result-dir', out, '--model', model, *flags, '--synthetic-data',
+                        '--num-samples', str(TREND_SAMPLES)])
         code = 0
     except SystemExit as e:
         code = e.code
     dt = time.perf_counter() - t0
-    with open(os.path.join(ada_out, 'trend.json')) as f:
+    with open(os.path.join(out, 'trend.json')) as f:
         report = json.load(f)
     fds = [r['fd'] for r in report['results']]
     if ([r['step'] for r in report['results']] != steps or not all(np.isfinite(fds))
             or code != (0 if report['gate_ok'] else 1)):
         raise AssertionError(f'fid_trend: exit {code}, snapshots {steps}, report {report}')
-    print(f'fid_trend on the ADA CLI run (G_{", G_".join(map(str, steps))}): fd '
-          + ' -> '.join(f'{v:.4f}' for v in fds)
-          + f'; gate {"OK" if report["gate_ok"] else "FAILED"} (exit {code}; the verdict of '
-          f'{steps[-1]} steps of training, not of the port); {dt:.1f} s on {card}')
+    geometry = ''
+    if any('resolution' in r for r in report['results']):
+        geometry = ' (' + ', '.join(f'G_{r["step"]} {r.get("resolution", "-")}px alpha '
+                                    f'{r["alpha"]:.2f}' for r in report['results']) + ')'
+    print(f'fid_trend --model {model} on the {model} CLI run (G_{", G_".join(map(str, steps))})'
+          f'{geometry}: fd ' + ' -> '.join(f'{v:.4f}' for v in fds)
+          + f'; gate {"OK" if report["gate_ok"] else "FAILED"}, gate_ok {report["gate_ok"]} '
+          f'(exit {code}; the verdict of {steps[-1]} steps of training, not of the port); '
+          f'{dt:.1f} s on {card}')
 
 
 VGG_LOSSES = ('style_loss', 'content_loss', 'vgg_loss')
@@ -2136,13 +2465,14 @@ def check_vgg_loss(dev, card, batch=2, rtol=1e-3, nudge=1e-6, nudges=3):
                              f'S {S}')
 
 
-def run_metrics_path(dev, card, sg2_out, ada_out):
+def run_metrics_path(dev, card, sg2_out, ada_out, pggan_out=None):
     '''The metrics (`animeface_tpu_torch/metrics/`, `nnutils/loss/vgg.py`):
     the Inception extractor on random weights that do not collapse (loaded
     through ANIMEFACE_INCEPTION_WEIGHTS from a temporary .npz), its
     statistics, FD and KID against numpy, `fid_cli` on the StyleGAN2 CLI
-    run's snapshot, `fid_trend` on the ADA CLI run's, and `VGGLoss`; no
-    hand-written kernel launched.'''
+    run's snapshot, `fid_trend` on the ADA CLI run's and (`--model PGGAN`)
+    on the PGGAN CLI run's, and `VGGLoss`; no hand-written kernel
+    launched.'''
     import os
     import tempfile
     from animeface_tpu_torch.metrics.inception import WEIGHTS_ENV
@@ -2161,6 +2491,9 @@ def run_metrics_path(dev, card, sg2_out, ada_out):
     torch.cuda.empty_cache()
     run_fid_trend(ada_out, card)
     torch.cuda.empty_cache()
+    if pggan_out is not None:
+        run_fid_trend(pggan_out, card, 'PGGAN', ('--image-size', str(PROGRESSIVE_IMAGE)))
+        torch.cuda.empty_cache()
     check_vgg_loss(dev, card)
     _check_no_launches('metrics')
 
@@ -2250,10 +2583,24 @@ def run_all() -> int:
             check_cli_step_against_cpu(recipe, out, dev)
         print(f'phase {recipe} CLI: {time.perf_counter() - t:.1f} s')
 
-    # the metrics, on the StyleGAN2 and ADA CLI runs' snapshots
+    # the progressive recipes: direct steps at 128px, the CLI through
+    # every phase, PGGAN's kill and resume
+    pggan_out = None
+    for recipe in ('PGGAN', 'StyleGAN'):
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        run_progressive_steps(recipe, dev, card)
+        torch.cuda.empty_cache()
+        out = run_progressive_cli(recipe, card)
+        if recipe == 'PGGAN':
+            pggan_out = out
+            run_progressive_kill_resume(card)
+        print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
+
+    # the metrics, on the StyleGAN2, ADA and PGGAN CLI runs' snapshots
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    run_metrics_path(dev, card, sg2_out, ada_out)
+    run_metrics_path(dev, card, sg2_out, ada_out, pggan_out)
     print(f'phase metrics: {time.perf_counter() - t:.1f} s')
 
     print(f'chip_smoke total: {time.perf_counter() - t_start:.1f} s')

@@ -68,11 +68,14 @@ def test_fid_cli_refuses_without_card(tmp_path, monkeypatch, capsys):
     assert 'no CUDA device' in capsys.readouterr().err
 
 
-def _trend(result_dir, *extra):
+def _trend_model(result_dir, model, *extra):
     with pytest.raises(SystemExit) as e:
-        fid_trend.main(['--result-dir', str(result_dir), '--model', 'StyleGAN2', *FLAGS,
-                        *extra])
+        fid_trend.main(['--result-dir', str(result_dir), '--model', model, *FLAGS, *extra])
     return e.value.code
+
+
+def _trend(result_dir, *extra):
+    return _trend_model(result_dir, 'StyleGAN2', *extra)
 
 
 def test_fid_trend_gate_and_exit_codes(tmp_path, capsys, on_cpu):
@@ -106,5 +109,50 @@ def test_fid_trend_refusals(tmp_path, on_cpu, capsys):
     assert _trend(tmp_path) == 2                        # one snapshot
     assert 'need >= 2 numbered snapshots' in capsys.readouterr().err
     _snapshot(tmp_path / 'G_20.pt', seed=2)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
-        fid_trend.main(['--result-dir', str(tmp_path), '--model', 'PGGAN', *FLAGS])
+    with pytest.raises(SystemExit) as e:                # PGGAN does not grow to 12px
+        fid_trend.main(['--result-dir', str(tmp_path), '--model', 'PGGAN', *FLAGS,
+                        '--image-size', '12'])
+    assert e.value.code == 2
+    assert 'PGGAN grows to [4, 8, 16, 32, 64, 128], not 12px' in capsys.readouterr().err
+
+
+#: PGGAN snapshots in the progressive runtime's format: (step, sidecar)
+PGGAN_SNAPSHOTS = ((10, dict(resolution=8, depth=1, mode='t', alpha=0.25)),
+                   (20, dict(resolution=16, depth=2, mode='s', alpha=1.0)),
+                   (30, None))
+
+
+def test_fid_trend_pggan_reads_sidecars(tmp_path, capsys, on_cpu):
+    '''`--model PGGAN` on snapshots saved as the PGGAN runtime saves them
+    (`G_<step>.pt` of G at the run's full depth, beside it the sidecar
+    `G_<step>.json`, one left without): each is sampled at its sidecar's
+    depth, mode and alpha and resized up to --image-size (at full depth,
+    's', alpha 1 without one), and `trend.json` records its resolution and
+    alpha. (A CLI run small enough for this file is at 8px, below the
+    trend's VGG: its five poolings need 16px.)'''
+    from animeface_tpu_torch.implementations.PGGAN.model import Generator
+    for step, sidecar in PGGAN_SNAPSHOTS:
+        G = Generator(latent_dim=16, max_depth=2, generator=torch.Generator().manual_seed(step))
+        save_model(str(tmp_path / f'G_{step}.pt'), G.state_dict())
+        if sidecar:
+            (tmp_path / f'G_{step}.json').write_text(json.dumps(sidecar))
+    code = _trend_model(tmp_path, 'PGGAN', '--latent-dim', '16')
+    report = json.loads((tmp_path / 'trend.json').read_text())
+    assert code == (0 if report['gate_ok'] else 1)
+    assert [{k: r.get(k) for k in ('step', 'resolution', 'alpha')} for r in report['results']] \
+        == [dict(step=10, resolution=8, alpha=0.25), dict(step=20, resolution=16, alpha=1.0),
+            dict(step=30, resolution=None, alpha=1.0)]
+    assert all(math.isfinite(r['fd']) for r in report['results'])
+    out = capsys.readouterr().out
+    assert '8px alpha 0.25' in out and out.count('16px alpha 1.00') == 2
+
+    args = fid_trend.parse_args(['--result-dir', str(tmp_path), '--image-size', '16',
+                                 '--latent-dim', '16', '--batch-size', '2'])
+    G, sample = fid_trend.pggan_model(args, torch.device('cpu'))
+    images = sample(torch.Generator().manual_seed(1), dict(depth=1, mode='t', alpha=0.25))
+    z = torch.randn((2, 16), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        low = G(z, 1, 't', 0.25)
+    assert low.shape == (2, 3, 8, 8) and images.shape == (2, 3, 16, 16)
+    assert torch.equal(images, torch.nn.functional.interpolate(
+        low, size=(16, 16), mode='bilinear', align_corners=False))

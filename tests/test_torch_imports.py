@@ -20,6 +20,7 @@ mods = [m.name for m in pkgutil.walk_packages(animeface_tpu_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 import chip_smoke, time_line_kernels, time_flrelu_kernel, time_bias_act_kernel
+import time_progressive_blur
 print(' '.join(mods))
 '''
 
@@ -47,6 +48,12 @@ REQUIRED = (
     'animeface_tpu_torch.implementations.GAN.utils',
     'animeface_tpu_torch.implementations.WGAN.utils',
     'animeface_tpu_torch.implementations.WGAN_gp.utils',
+    'animeface_tpu_torch.implementations.PGGAN.config',
+    'animeface_tpu_torch.implementations.PGGAN.model',
+    'animeface_tpu_torch.implementations.PGGAN.utils',
+    'animeface_tpu_torch.implementations.StyleGAN.model',
+    'animeface_tpu_torch.implementations.StyleGAN.utils',
+    'animeface_tpu_torch.nnutils.loss.penalty',
     'animeface_tpu_torch.nnutils.batchnorm',
     'animeface_tpu_torch.nnutils.optim',
     'animeface_tpu_torch.__main__',
