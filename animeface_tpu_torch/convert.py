@@ -1,7 +1,8 @@
 '''JAX package parameters -> the port's `state_dict`, for StyleGAN2 and
 StyleGAN3 G and D, the CIPS G, FastGAN's G and D, the G and D of DCGAN
 (also WGAN's and WGAN-gp's) and GAN, PGGAN's and StyleGAN (v1)'s G and D,
-and the metrics' InceptionV3 and VGG trunks.
+the metrics' InceptionV3 and VGG trunks, and BigGAN's (and SEBigGAN's) G
+and D.
 
 Input: a flax params tree (nested dicts of numpy arrays, as
 `jax.device_get(variables['params'])` gives). Output: a dict of float32
@@ -23,8 +24,9 @@ is StyleGAN3's) and FastGAN (`convert_fastgan_generator`,
 `convert_dcgan_discriminator`) and GAN (`convert_gan_generator`,
 `convert_gan_discriminator`), PGGAN (`convert_pggan_generator`,
 `convert_pggan_discriminator`), StyleGAN v1 (`convert_stylegan1_generator`,
-`convert_stylegan1_discriminator`), InceptionV3 (`convert_inception`) and
-VGG (`convert_vgg`) after it.
+`convert_stylegan1_discriminator`), InceptionV3 (`convert_inception`),
+VGG (`convert_vgg`) and BigGAN (`convert_biggan_generator`,
+`convert_biggan_discriminator`; SEBigGAN's too) after it.
 
 Generator:                                 port
   map/ELRDense_i                           map.layers.i
@@ -218,7 +220,8 @@ def _sn_layer(p, s, prefix, out):
     out[f'{prefix}.weight'] = _t(k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T)
     if 'bias' in p[name]:
         out[f'{prefix}.bias'] = _t(p[name]['bias'])
-    out[f'{prefix}.u'] = _t(np.asarray(s['SpectralNorm_0'][f'{name}/kernel/u']).reshape(-1))
+    if s and 'SpectralNorm_0' in s:                 # none with use_sn=False
+        out[f'{prefix}.u'] = _t(np.asarray(s['SpectralNorm_0'][f'{name}/kernel/u']).reshape(-1))
 
 
 def _fastgan_norm(p, s, prefix, out):
@@ -451,3 +454,115 @@ def convert_stylegan1_generator(params) -> dict:
 
 
 convert_stylegan1_discriminator = convert_pggan_discriminator
+
+
+# ---------------------------------------------------------------- BigGAN and SEBigGAN
+#
+# Input: the flax variables {'params', 'batch_stats'}; a spectral norm's u as
+# for FastGAN (absent with use_sn=False). flax names the submodules by
+# creation order:
+# Generator:                                           port
+#   SNDense_0 / BatchNorm_0 / SNConv_0 / PReLU_0        fc / bn / out / act_fn
+#   GBlock_i or GBlockDeep_i                            blocks.i
+#   SelfAttention_0 | SqueezeExcitation_0 | LambdaLayer_0
+#                                                       attention
+# GBlock: ConditionalNorm_{0,1} -> cn1, cn2; SNConv_{0,1,2} -> skip, conv1,
+#   conv2 (conv1, conv2 when there is no skip conv)
+# GBlockDeep: ConditionalNorm_{0..3} -> cn1..cn4; SNConv_{0..3} -> conv1..conv4
+# ConditionalNorm: SNDense_{0,1} -> gain, bias; BatchNorm_0 stats (mean, var)
+#   -> running_mean, running_var ('in' holds none)
+# Discriminator: SNConv_0 (deep only) -> blocks.0; DBlock_i or DBlockDeep_i
+#   -> the blocks after it; SNDense_0 / PReLU_0 -> fc / act_fn
+# DBlock: SNConv_{0,1,2} -> conv1, conv2, skip; DBlockDeep: SNConv_{0..4}
+#   -> conv1..conv4, widen
+# SelfAttention: SNConv_{0..3} -> theta, phi, g, out; gamma
+# SqueezeExcitation: SNDense_{0,1} -> fc1, fc2
+# LambdaLayer: SNConv_{0,1,2} -> q, k, v; BatchNorm_{0,1} -> q_bn, v_bn; pos_emb
+
+_BIGGAN_LAYERS = {
+    'GBlock': (('cn1', 'cn2'), ('conv1', 'conv2')),
+    'GBlockDeep': (('cn1', 'cn2', 'cn3', 'cn4'), ('conv1', 'conv2', 'conv3', 'conv4')),
+    'DBlock': ((), ('conv1', 'conv2', 'skip')),
+    'DBlockDeep': ((), ('conv1', 'conv2', 'conv3', 'conv4', 'widen')),
+}
+
+
+def _biggan_act(p, prefix, out):
+    if 'PReLU_0' in p:
+        out[f'{prefix}act_fn.negative_slope'] = _t(p['PReLU_0']['negative_slope'])
+
+
+def _biggan_cn(p, s, prefix, out):
+    for k, dense in enumerate(('gain', 'bias')):
+        _sn_layer(p[f'SNDense_{k}'], s.get(f'SNDense_{k}'), f'{prefix}.{dense}', out)
+    if 'BatchNorm_0' in s:
+        out[f'{prefix}.running_mean'] = _t(s['BatchNorm_0']['mean'])
+        out[f'{prefix}.running_var'] = _t(s['BatchNorm_0']['var'])
+
+
+def _biggan_block(kind, p, s, prefix, out):
+    norms, convs = _BIGGAN_LAYERS[kind]
+    names = sorted((k for k in p if k.startswith('SNConv_')), key=lambda k: int(k[7:]))
+    if kind == 'GBlock' and len(names) == 3:
+        convs = ('skip',) + convs
+    for name, port in zip(names, convs):
+        _sn_layer(p[name], s.get(name), f'{prefix}.{port}', out)
+    for j, port in enumerate(norms):
+        _biggan_cn(p[f'ConditionalNorm_{j}'], s.get(f'ConditionalNorm_{j}', {}),
+                   f'{prefix}.{port}', out)
+    _biggan_act(p, f'{prefix}.', out)
+
+
+#: each attention module's spectral-normalized layers, in flax's order
+_BIGGAN_ATTENTION = {'SelfAttention': ('SNConv', ('theta', 'phi', 'g', 'out')),
+                     'SqueezeExcitation': ('SNDense', ('fc1', 'fc2')),
+                     'LambdaLayer': ('SNConv', ('q', 'k', 'v'))}
+
+
+def _biggan_attention(kind, p, s, prefix, out):
+    layer, ports = _BIGGAN_ATTENTION[kind]
+    for j, port in enumerate(ports):
+        _sn_layer(p[f'{layer}_{j}'], s.get(f'{layer}_{j}'), f'{prefix}.{port}', out)
+    if kind == 'SelfAttention':
+        out[f'{prefix}.gamma'] = _t(p['gamma'])
+    if kind == 'LambdaLayer':
+        for j, port in enumerate(('q_bn', 'v_bn')):
+            _batch_norm(p[f'BatchNorm_{j}'], s[f'BatchNorm_{j}'], f'{prefix}.{port}', out)
+        out[f'{prefix}.pos_emb'] = _t(p['pos_emb'])
+
+
+def _biggan_model_attention(p, s, out):
+    for kind in _BIGGAN_ATTENTION:
+        if f'{kind}_0' in p:
+            _biggan_attention(kind, p[f'{kind}_0'], s.get(f'{kind}_0', {}), 'attention', out)
+
+
+def _biggan_blocks(p, s, kinds, first, out):
+    kind = next(k for k in kinds if f'{k}_0' in p)
+    for i, pb in enumerate(_indexed(p, kind)):
+        _biggan_block(kind, pb, s.get(f'{kind}_{i}', {}), f'blocks.{first + i}', out)
+
+
+def convert_biggan_generator(variables) -> dict:
+    p, s = variables['params'], variables.get('batch_stats', {})
+    out = {}
+    _sn_layer(p['SNDense_0'], s.get('SNDense_0'), 'fc', out)
+    _biggan_blocks(p, s, ('GBlockDeep', 'GBlock'), 0, out)
+    _biggan_model_attention(p, s, out)
+    _batch_norm(p['BatchNorm_0'], s['BatchNorm_0'], 'bn', out)
+    _sn_layer(p['SNConv_0'], s.get('SNConv_0'), 'out', out)
+    _biggan_act(p, '', out)
+    return out
+
+
+def convert_biggan_discriminator(variables) -> dict:
+    p, s = variables['params'], variables.get('batch_stats', {})
+    out = {}
+    deep = 'DBlockDeep_0' in p
+    if deep:
+        _sn_layer(p['SNConv_0'], s.get('SNConv_0'), 'blocks.0', out)
+    _biggan_blocks(p, s, ('DBlockDeep', 'DBlock'), int(deep), out)
+    _biggan_model_attention(p, s, out)
+    _sn_layer(p['SNDense_0'], s.get('SNDense_0'), 'fc', out)
+    _biggan_act(p, '', out)
+    return out

@@ -33,7 +33,7 @@ from animeface_tpu_torch.nnutils.loss import GANLoss
 from animeface_tpu_torch.nnutils.rng import make_generator, sample_nnoise
 from animeface_tpu_torch.nnutils.trainer import (
     default_max_iters, host_step_counter, run_training)
-from animeface_tpu_torch.nnutils.training import step_all_parameters, train_state
+from animeface_tpu_torch.nnutils.training import buffers_dropped, step_all_parameters, train_state
 from animeface_tpu_torch.utils import add_args, save_args
 from animeface_tpu_torch.utils.argument import recipe_defaults
 
@@ -70,20 +70,6 @@ def make_optimizers(args, G, D):
 def draw_step_inputs(G, real, generator):
     '''The step's random draw: z.'''
     return dict(z=sample_nnoise((real.shape[0], G.latent_dim), generator))
-
-
-@contextlib.contextmanager
-def buffers_dropped(*modules):
-    '''Run the block, then put `modules`' buffers (BatchNorm's running
-    statistics) back as they were before it: its updates are dropped.'''
-    buffers = [b for m in modules for b in m.buffers()]
-    kept = [b.clone() for b in buffers]
-    try:
-        yield
-    finally:
-        with torch.no_grad():
-            for b, v in zip(buffers, kept):
-                b.copy_(v)
 
 
 def d_phase(G, D, z, real, d_opt, loss, penalty=None, keep_g_buffers=True):

@@ -5,11 +5,8 @@ Counterpart of `animeface_tpu/implementations/FastGAN/model.py`, class for
 class, at the recipe's knobs: `norm_name` 'bn' or 'in' (a conv has a bias
 iff the norm is not 'bn'), `num_sle` None or an int. What is kept from the
 JAX package:
-  * flax's spectral norm, not torch's parametrization: every call runs one
-    power iteration from the stored `u` (a buffer of [out]) on the weight
-    as an [out, fan_in] matrix, with l2-normalisation x * rsqrt(sum(x^2) +
-    1e-12), and divides the weight by sigma = u' . (W v), u' and v held
-    constant; `train=True` stores u' (flax's `update_stats`);
+  * flax's spectral norm (`nnutils/spectral_norm.py`): one power
+    iteration from the buffer `u` on every call, u' stored in training;
   * flax's BatchNorm (`nnutils/batchnorm.py`, eps 1e-5, momentum 0.9);
     'in' is flax's GroupNorm(group_size=1) without scale or bias, eps 1e-6;
   * nearest resizes with JAX's sample positions: 2x up repeats each
@@ -36,77 +33,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from animeface_tpu_torch.nnutils.batchnorm import batch_norm
+from animeface_tpu_torch.nnutils.batchnorm import batch_norm, instance_norm
+from animeface_tpu_torch.nnutils.spectral_norm import SNConv, SNDense
 from animeface_tpu_torch.ops.activations import leaky_relu
 
 
 def _lrelu(x):
     return leaky_relu(x, 0.2)
-
-
-def _l2_normalize(x, eps=1e-12):
-    return x * torch.rsqrt((x * x).sum() + eps)
-
-
-class _SpectralNorm(nn.Module):
-    '''A weight [out, ...] divided by its largest singular value, estimated
-    by one power iteration from the buffer `u` on every call.'''
-
-    def _init_sn(self, weight_shape, generator):
-        fan_in = math.prod(weight_shape[1:])
-        self.weight = nn.Parameter(torch.randn(weight_shape, generator=generator)
-                                   / math.sqrt(fan_in))
-        self.register_buffer('u', torch.randn(weight_shape[0], generator=generator))
-
-    def normalized_weight(self, train: bool):
-        w = self.weight
-        mat = w.reshape(w.shape[0], -1)                          # [out, fan_in]
-        with torch.no_grad():
-            v = _l2_normalize(self.u @ mat)
-            u = _l2_normalize(mat @ v)
-        sigma = torch.dot(u, mat @ v)
-        if train:
-            with torch.no_grad():
-                self.u.copy_(u)
-        return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
-
-
-class SNConv(_SpectralNorm):
-    '''Spectral-normalized conv; `padding` 'SAME' (odd kernels, stride 1),
-    'VALID' or an int.'''
-
-    def __init__(self, in_ch, features, kernel_size=3, stride=1, padding='SAME',
-                 use_bias=True, dtype=torch.float32, generator=None):
-        super().__init__()
-        self._init_sn((features, in_ch, kernel_size, kernel_size), generator)
-        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
-        if padding == 'SAME':
-            assert stride == 1 and kernel_size % 2 == 1
-            padding = kernel_size // 2
-        self.padding = 0 if padding == 'VALID' else padding
-        self.stride = stride
-        self.dtype = dtype
-
-    def forward(self, x, train: bool = True):
-        w = self.normalized_weight(train).to(self.dtype)
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), w, b, self.stride, self.padding)
-
-
-class SNDense(_SpectralNorm):
-    '''Spectral-normalized dense layer; weight [out, in].'''
-
-    def __init__(self, in_features, features, use_bias=True, dtype=torch.float32,
-                 generator=None):
-        super().__init__()
-        self._init_sn((features, in_features), generator)
-        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
-        self.dtype = dtype
-
-    def forward(self, x, train: bool = True):
-        w = self.normalized_weight(train).to(self.dtype)
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), w, b)
 
 
 class Norm(nn.Module):
@@ -129,11 +62,7 @@ class Norm(nn.Module):
         if self.bn:
             return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
                               train, dtype=self.dtype)
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(2, 3))
-        var = ((xf * xf).mean(dim=(2, 3)) - mean * mean).clamp_min(0)
-        y = (xf - mean[..., None, None]) * torch.rsqrt(var + 1e-6)[..., None, None]
-        return y.to(self.dtype)
+        return instance_norm(x, dtype=self.dtype)
 
 
 def _up2x(x):

@@ -40,7 +40,8 @@ from animeface_tpu_torch.nnutils.diffaugment import diff_augment, draw_diff_augm
 from animeface_tpu_torch.nnutils.loss import HingeLoss
 from animeface_tpu_torch.nnutils.rng import make_generator, sample_nnoise
 from animeface_tpu_torch.nnutils.trainer import default_max_iters, run_training
-from animeface_tpu_torch.nnutils.training import step_all_parameters, train_state, update_ema
+from animeface_tpu_torch.nnutils.training import (
+    buffers_dropped, step_all_parameters, train_state, update_ema)
 from animeface_tpu_torch.utils import add_args, make_image_grid, save_args, save_image
 from animeface_tpu_torch.utils.argument import recipe_defaults, result_dir
 
@@ -122,8 +123,6 @@ def build_train_step(G, D, G_ema, g_opt, d_opt, loss, policy, use_ema: bool,
                      ema_decay: float = 0.999):
     '''One iteration (D phase, G phase, optional EMA). Returns
     `train_step(state, real, draws=None) -> (metrics, recons)`.'''
-    buffers = list(G.buffers()) + list(D.buffers())
-
     def train_step(state, real, draws=None):
         if draws is None:
             draws = draw_step_inputs(G, real, state['generator'], policy)
@@ -143,17 +142,14 @@ def build_train_step(G, D, G_ema, g_opt, d_opt, loss, policy, use_ema: bool,
         step_all_parameters(d_opt, D)
 
         # ---------------- G phase (its buffer updates dropped) ----------------
-        kept = [b.clone() for b in buffers]
-        D.requires_grad_(False)
-        g_opt.zero_grad(set_to_none=True)
-        fake2 = G(z, train=True)
-        g_loss = loss.g_loss(D(diff_augment(fake2, policy, draws['aug_g']), train=True))
-        g_loss.backward()
-        step_all_parameters(g_opt, G)
-        D.requires_grad_(True)
-        with torch.no_grad():
-            for b, v in zip(buffers, kept):
-                b.copy_(v)
+        with buffers_dropped(G, D):
+            D.requires_grad_(False)
+            g_opt.zero_grad(set_to_none=True)
+            fake2 = G(z, train=True)
+            g_loss = loss.g_loss(D(diff_augment(fake2, policy, draws['aug_g']), train=True))
+            g_loss.backward()
+            step_all_parameters(g_opt, G)
+            D.requires_grad_(True)
 
         if use_ema:
             update_ema(G, G_ema, ema_decay)

@@ -24,6 +24,7 @@ from animeface_tpu_torch.implementations.WGAN.utils import (
 from animeface_tpu_torch.nnutils.accelerate import Accelerator
 from animeface_tpu_torch.nnutils.loss import WGANLoss
 from animeface_tpu_torch.nnutils.rng import sample_unoise
+from animeface_tpu_torch.nnutils.training import buffers_dropped
 from animeface_tpu_torch.utils import add_args, save_args
 from animeface_tpu_torch.utils.argument import recipe_defaults
 
@@ -71,7 +72,7 @@ def build_steps(G, D, g_opt, d_opt, loss, gp_gamma):
     '''The two variants, `{'critic': step, 'full': step}`, each
     `step(state, real, draws=None) -> metrics`; the draws hold z and alpha.'''
     def d_apply(x):
-        with dcgan.buffers_dropped(D):
+        with buffers_dropped(D):
             return D(x)
 
     def d_step(state, real, draws, full):

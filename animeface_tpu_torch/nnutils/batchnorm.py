@@ -11,7 +11,10 @@ so it is not a substitute. Kept from flax:
     momentum * running + (1 - momentum) * batch (momentum 0.9), used when
     `train=False`;
   * y = (x - mean) * (rsqrt(var + eps) * scale) + bias in float32, cast to
-    the compute `dtype`.
+    the compute `dtype`; without a scale or a bias (`use_scale=False`,
+    `use_bias=False`, as BigGAN's conditional norm) those terms drop out.
+`instance_norm` is flax's `nn.GroupNorm` with one channel per group and
+neither scale nor bias (FastGAN's and BigGAN's 'in').
 Every step of the normalization is a differentiable PyTorch op, so a double
 backward (WGAN-gp's penalty) is autograd's; the running statistics are
 updated outside the graph.
@@ -30,7 +33,8 @@ def batch_norm(x, weight, bias, running_mean, running_var, train: bool, eps: flo
                dtype=torch.float32):
     '''flax's batch normalization of `x` ([B, F] or [B, C, ...]) over every
     axis but 1. With `train`, normalize by the batch statistics and move the
-    running ones towards them in place; else normalize by the running ones.'''
+    running ones towards them in place; else normalize by the running ones.
+    `weight` (the scale) and `bias` may be None.'''
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     axes = [d for d in range(x.ndim) if d != 1]
     if train:
@@ -42,8 +46,23 @@ def batch_norm(x, weight, bias, running_mean, running_var, train: bool, eps: flo
     else:
         mean, var = running_mean, running_var
     shape = (1, -1) + (1,) * (x.ndim - 2)
-    mul = torch.rsqrt(var + eps) * weight
-    y = (xf - mean.reshape(shape)) * mul.reshape(shape) + bias.reshape(shape)
+    mul = torch.rsqrt(var + eps)
+    if weight is not None:
+        mul = mul * weight
+    y = (xf - mean.reshape(shape)) * mul.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
+    return y.to(dtype)
+
+
+def instance_norm(x, eps: float = 1e-6, dtype=torch.float32):
+    '''flax `nn.GroupNorm(num_groups=C)` without scale or bias over NCHW `x`:
+    each sample's channel normalized by its own mean and E[x^2] - E[x]^2
+    over H and W, in float32, cast to `dtype`.'''
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dim=(2, 3))
+    var = ((xf * xf).mean(dim=(2, 3)) - mean * mean).clamp_min(0)
+    y = (xf - mean[..., None, None]) * torch.rsqrt(var + eps)[..., None, None]
     return y.to(dtype)
 
 

@@ -2,17 +2,41 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
 
 @torch.no_grad()
-def update_ema(model: nn.Module, ema_model: nn.Module, decay: float = 0.999) -> None:
+def update_ema(model: nn.Module, ema_model: nn.Module, decay: float = 0.999,
+               buffers: bool = False) -> None:
     '''ema = decay * ema + (1 - decay) * params, IN PLACE on `ema_model`'s
     parameters, under `torch.no_grad()` (JAX returned a new pytree).
-    `decay=0` copies the parameters.'''
-    for e, p in zip(ema_model.parameters(), model.parameters()):
+    `decay=0` copies the parameters. With `buffers`, the floating-point
+    buffers (spectral norm's u, running statistics) move the same way, as
+    JAX's `update_ema` over {'params', 'batch_stats'} (SEBigGAN) does.'''
+    pairs = list(zip(ema_model.parameters(), model.parameters()))
+    if buffers:
+        pairs += [(e, b) for e, b in zip(ema_model.buffers(), model.buffers())
+                  if e.is_floating_point()]
+    for e, p in pairs:
         e.mul_(decay).add_(p.to(e.dtype), alpha=1.0 - decay)
+
+
+@contextlib.contextmanager
+def buffers_dropped(*modules):
+    '''Run the block, then put `modules`' buffers (running statistics,
+    spectral norm's u) back as they were before it: its updates are
+    dropped, as JAX discards a phase's `mutable` output.'''
+    buffers = [b for m in modules for b in m.buffers()]
+    kept = [b.clone() for b in buffers]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in zip(buffers, kept):
+                b.copy_(v)
 
 
 def step_all_parameters(opt: torch.optim.Optimizer, module: nn.Module) -> None:

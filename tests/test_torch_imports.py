@@ -54,6 +54,14 @@ REQUIRED = (
     'animeface_tpu_torch.implementations.StyleGAN.model',
     'animeface_tpu_torch.implementations.StyleGAN.utils',
     'animeface_tpu_torch.nnutils.loss.penalty',
+    'animeface_tpu_torch.nnutils.initialize',
+    'animeface_tpu_torch.nnutils.module',
+    'animeface_tpu_torch.nnutils.module.layers',
+    'animeface_tpu_torch.nnutils.spectral_norm',
+    'animeface_tpu_torch.implementations.BigGAN.model',
+    'animeface_tpu_torch.implementations.BigGAN.utils',
+    'animeface_tpu_torch.implementations.SEBigGAN.model',
+    'animeface_tpu_torch.implementations.SEBigGAN.utils',
     'animeface_tpu_torch.nnutils.batchnorm',
     'animeface_tpu_torch.nnutils.optim',
     'animeface_tpu_torch.__main__',

@@ -1,9 +1,9 @@
 '''The port's CLI arguments against the JAX package's: the global parser's
 defaults and each recipe's (StyleGAN2, StyleGAN3, ADA, CIPS, FastGAN,
-DCGAN, GAN, WGAN, WGAN_gp, PGGAN, StyleGAN), exactly; the flags
-whose feature is not ported refuse a non-default value; an unknown recipe
-(or one the port has no CLI for yet, as BigGAN) gets the list of those that
-have a CLI and exit code 2; without a card and
+DCGAN, GAN, WGAN, WGAN_gp, PGGAN, StyleGAN, BigGAN, SEBigGAN), exactly;
+the flags whose feature is not ported refuse a non-default value; an
+unknown recipe (or one the port has no CLI for yet, as TransGAN) gets the
+list of those that have a CLI and exit code 2; without a card and
 without ANIMEFACE_PLATFORM=cpu the CLI fails instead of training on the
 CPU.'''
 
@@ -15,11 +15,13 @@ import sys
 import pytest
 
 from animeface_tpu.implementations.ADA import utils as j_ada
+from animeface_tpu.implementations.BigGAN import utils as j_biggan
 from animeface_tpu.implementations.CIPS import utils as j_cips
 from animeface_tpu.implementations.DCGAN import utils as j_dcgan
 from animeface_tpu.implementations.FastGAN import utils as j_fastgan
 from animeface_tpu.implementations.GAN import utils as j_gan
 from animeface_tpu.implementations.PGGAN import utils as j_pggan
+from animeface_tpu.implementations.SEBigGAN import utils as j_sebiggan
 from animeface_tpu.implementations.StyleGAN import utils as j_sg1
 from animeface_tpu.implementations.StyleGAN2 import utils as j_sg2
 from animeface_tpu.implementations.StyleGAN3 import utils as j_sg3
@@ -29,11 +31,13 @@ from animeface_tpu.utils import argument as j_argument
 
 from animeface_tpu_torch import __main__ as cli
 from animeface_tpu_torch.implementations.ADA import utils as t_ada
+from animeface_tpu_torch.implementations.BigGAN import utils as t_biggan
 from animeface_tpu_torch.implementations.CIPS import utils as t_cips
 from animeface_tpu_torch.implementations.DCGAN import utils as t_dcgan
 from animeface_tpu_torch.implementations.FastGAN import utils as t_fastgan
 from animeface_tpu_torch.implementations.GAN import utils as t_gan
 from animeface_tpu_torch.implementations.PGGAN import utils as t_pggan
+from animeface_tpu_torch.implementations.SEBigGAN import utils as t_sebiggan
 from animeface_tpu_torch.implementations.StyleGAN import utils as t_sg1
 from animeface_tpu_torch.implementations.StyleGAN2 import utils as t_sg2
 from animeface_tpu_torch.implementations.StyleGAN3 import utils as t_sg3
@@ -46,7 +50,8 @@ RECIPES = {'StyleGAN2': (j_sg2, t_sg2), 'StyleGAN3': (j_sg3, t_sg3), 'ADA': (j_a
            'CIPS': (j_cips, t_cips), 'FastGAN': (j_fastgan, t_fastgan),
            'DCGAN': (j_dcgan, t_dcgan), 'GAN': (j_gan, t_gan), 'WGAN': (j_wgan, t_wgan),
            'WGAN_gp': (j_wgan_gp, t_wgan_gp), 'PGGAN': (j_pggan, t_pggan),
-           'StyleGAN': (j_sg1, t_sg1)}
+           'StyleGAN': (j_sg1, t_sg1), 'BigGAN': (j_biggan, t_biggan),
+           'SEBigGAN': (j_sebiggan, t_sebiggan)}
 
 
 class _Parsed(Exception):
@@ -98,7 +103,7 @@ def test_one_device_mesh_is_accepted(mesh):
     t_argument.refuse_deferred(args)
 
 
-@pytest.mark.parametrize('name', ['NoSuchModel', 'BigGAN'])
+@pytest.mark.parametrize('name', ['NoSuchModel', 'TransGAN'])
 def test_unknown_recipe_exits_2(name, monkeypatch, capsys):
     monkeypatch.setenv('ANIMEFACE_PLATFORM', 'cpu')
     with pytest.raises(SystemExit) as e:
@@ -106,8 +111,8 @@ def test_unknown_recipe_exits_2(name, monkeypatch, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert name in err
-    for recipe in ('ADA', 'CIPS', 'DCGAN', 'FastGAN', 'GAN', 'PGGAN', 'StyleGAN', 'StyleGAN2',
-                   'StyleGAN3', 'WGAN', 'WGAN_gp'):
+    for recipe in ('ADA', 'BigGAN', 'CIPS', 'DCGAN', 'FastGAN', 'GAN', 'PGGAN', 'SEBigGAN',
+                   'StyleGAN', 'StyleGAN2', 'StyleGAN3', 'WGAN', 'WGAN_gp'):
         assert recipe in err
 
 
