@@ -1,8 +1,8 @@
 '''JAX package parameters -> the port's `state_dict`, for StyleGAN2 and
 StyleGAN3 G and D, the CIPS G, FastGAN's G and D, the G and D of DCGAN
 (also WGAN's and WGAN-gp's) and GAN, PGGAN's and StyleGAN (v1)'s G and D,
-the metrics' InceptionV3 and VGG trunks, and BigGAN's (and SEBigGAN's) G
-and D.
+the metrics' InceptionV3 and VGG trunks, BigGAN's (and SEBigGAN's) G and
+D, and the G and D of TransGAN, HiT, ConvNeXt and VAN.
 
 Input: a flax params tree (nested dicts of numpy arrays, as
 `jax.device_get(variables['params'])` gives). Output: a dict of float32
@@ -26,7 +26,8 @@ is StyleGAN3's) and FastGAN (`convert_fastgan_generator`,
 `convert_pggan_discriminator`), StyleGAN v1 (`convert_stylegan1_generator`,
 `convert_stylegan1_discriminator`), InceptionV3 (`convert_inception`),
 VGG (`convert_vgg`) and BigGAN (`convert_biggan_generator`,
-`convert_biggan_discriminator`; SEBigGAN's too) after it.
+`convert_biggan_discriminator`; SEBigGAN's too) and the simple-GAN models
+(`convert_{transgan,hit,convnext,van}_{generator,discriminator}`) after it.
 
 Generator:                                 port
   map/ELRDense_i                           map.layers.i
@@ -565,4 +566,224 @@ def convert_biggan_discriminator(variables) -> dict:
     _biggan_model_attention(p, s, out)
     _sn_layer(p['SNDense_0'], s.get('SNDense_0'), 'fc', out)
     _biggan_act(p, '', out)
+    return out
+
+
+# ---------------------------------------------------------------- the simple-GAN models
+#
+# TransGAN, HiT, ConvNeXt and VAN (`implementations/{TransGAN,HiT,ConvNeXt,
+# VAN}/model.py`): flax names its children by type and creation order in
+# each scope; LayerNorm's and GroupNorm's `scale` is the port's `weight`;
+# raw parameters (position embeddings, the cls token, HiT's q/k/v/o,
+# ConvNeXt's gamma, VAN's layer scales) carry over as they are.
+
+def _norm(p, prefix, out):
+    if p is None:                      # a norm without scale or bias ('in', 'bn')
+        return
+    out[f'{prefix}.weight'] = _t(p['scale'])
+    out[f'{prefix}.bias'] = _t(p['bias'])
+
+
+def _raw(p, name, key, out):
+    out[key] = _t(p[name])
+
+
+def _transgan_block(p, prefix, out):
+    _norm(p['LayerNorm_0'], f'{prefix}.norm1', out)
+    _dense(p['Attention_0']['Dense_0'], f'{prefix}.attn.qkv', out)
+    _dense(p['Attention_0']['Dense_1'], f'{prefix}.attn.proj', out)
+    _norm(p['LayerNorm_1'], f'{prefix}.norm2', out)
+    _dense(p['Dense_0'], f'{prefix}.fc1', out)
+    _dense(p['Dense_1'], f'{prefix}.fc2', out)
+
+
+def convert_transgan_generator(params, depths) -> dict:
+    '''EncoderBlock_k (numbered across stages) -> stages.i.j for `depths`
+    blocks a stage; pos_embed_i -> pos_embeds.i; Dense_0 -> input; Conv_0
+    -> to_image.'''
+    out = {}
+    _dense(params['Dense_0'], 'input', out)
+    blocks = iter(_indexed(params, 'EncoderBlock'))
+    for i, depth in enumerate(depths):
+        _raw(params, f'pos_embed_{i}', f'pos_embeds.{i}', out)
+        for j in range(depth):
+            _transgan_block(next(blocks), f'stages.{i}.{j}', out)
+    _conv(params['Conv_0'], 'to_image', out)
+    return out
+
+
+def convert_transgan_discriminator(params) -> dict:
+    out = {}
+    _conv(params['Conv_0'], 'patch', out)
+    _raw(params, 'cls_token', 'cls_token', out)
+    _raw(params, 'pos_embed', 'pos_embed', out)
+    for k, pb in enumerate(_indexed(params, 'EncoderBlock')):
+        _transgan_block(pb, f'blocks.{k}', out)
+    _norm(params['LayerNorm_0'], 'norm', out)
+    _dense(params['Dense_0'], 'head', out)
+    return out
+
+
+def _hit_stage(p, prefix, out):
+    _raw(p, 'pos_embed', f'{prefix}.pos_embed', out)
+    norms, mlps = _indexed(p, 'LayerNorm'), _indexed(p, 'MLP')
+    attns = _indexed(p, 'MultiAxisAttention')
+    _norm(norms[0], f'{prefix}.norm_q', out)
+    for name, key in (('Dense_0', 'q'), ('Dense_1', 'kv'), ('Dense_2', 'out')):
+        _dense(p['MultiQueryAttention_0'][name], f'{prefix}.cross.{key}', out)
+    _norm(norms[1], f'{prefix}.norm_mlp', out)
+    bases = [prefix] + [f'{prefix}.blocks.{k}' for k in range(len(mlps) - 1)]
+    for base, mlp in zip(bases, mlps):
+        for i, pd in enumerate(_indexed(mlp, 'Dense')):
+            _dense(pd, f'{base}.mlp.fc{i + 1}', out)
+    block_norms = iter(norms[2:])
+    for k, base in enumerate(bases[1:]):
+        if attns:
+            _norm(next(block_norms), f'{base}.norm_attn', out)
+            for key in ('q', 'k', 'v', 'o'):
+                _raw(attns[k], key, f'{base}.attn.{key}', out)
+        _norm(next(block_norms), f'{base}.norm_mlp', out)
+    dense = _indexed(p, 'Dense')
+    dim = np.shape(p['pos_embed'])[-1]
+    if dense and np.shape(dense[0]['kernel'])[0] == dim:    # a high-res stage's RGB
+        _dense(dense.pop(0), f'{prefix}.to_rgb', out)
+    if dense:
+        _dense(dense[0], f'{prefix}.proj', out)
+
+
+def convert_hit_generator(params) -> dict:
+    '''Dense_0 -> input, Dense_1 -> latent, z_pos_embed, Stage_i ->
+    stages.i: LayerNorm_0 norm_q, MultiQueryAttention_0 cross (q, kv, out),
+    LayerNorm_1 and MLP_0 the stage's MLP, then per block (multi-axis
+    attention's LayerNorm and q/k/v/o,) LayerNorm and MLP_k; a high-res
+    stage's Dense_0 to_rgb, the next Dense proj.'''
+    out = {}
+    _dense(params['Dense_0'], 'input', out)
+    _dense(params['Dense_1'], 'latent', out)
+    _raw(params, 'z_pos_embed', 'z_pos_embed', out)
+    for i, ps in enumerate(_indexed(params, 'Stage')):
+        _hit_stage(ps, f'stages.{i}', out)
+    return out
+
+
+def convert_hit_discriminator(params, bottom) -> dict:
+    '''Conv_0 -> input; Conv_{1+3i}, Conv_{2+3i}, Conv_{3+3i} -> blocks.i.0-2;
+    the last Conv -> conv; Dense_0 -> fc, its input rows permuted from the
+    flattened NHWC [bottom, bottom, C] map to NCHW; Dense_1 -> head.'''
+    out = {}
+    convs = _indexed(params, 'Conv')
+    _conv(convs[0], 'input', out)
+    for i in range((len(convs) - 2) // 3):
+        for j in range(3):
+            _conv(convs[1 + 3 * i + j], f'blocks.{i}.{j}', out)
+    _conv(convs[-1], 'conv', out)
+    kernel = np.asarray(params['Dense_0']['kernel'])
+    C = kernel.shape[0] // bottom ** 2
+    out['fc.weight'] = _t(kernel.reshape(bottom, bottom, C, -1).transpose(2, 0, 1, 3)
+                          .reshape(kernel.shape[0], -1).T)
+    out['fc.bias'] = _t(params['Dense_0']['bias'])
+    _dense(params['Dense_1'], 'head', out)
+    return out
+
+
+def _convnext_block(p, prefix, out, names):
+    '''Conv_k -> `names[k]`; GroupNorm_k in creation order -> the norms the
+    block has (`norm1`, `norm2`, `norm3`, or `norm` alone); gamma.'''
+    for pc, name in zip(_indexed(p, 'Conv'), names):
+        _conv(pc, f'{prefix}.{name}', out)
+    norms = _indexed(p, 'GroupNorm')
+    keys = ['norm'] if names[0] == 'dwconv' else ['norm1', 'norm2', 'norm3'][:len(norms)]
+    for pn, key in zip(norms, keys):
+        _norm(pn, f'{prefix}.{key}', out)
+    _raw(p, 'gamma', f'{prefix}.gamma', out)
+
+
+def convert_convnext_generator(params, blocks_per_scale) -> dict:
+    '''Dense_0 -> input; per scale i GroupNorm_i -> stages.i.0 ('bn' has no
+    parameters), Conv_i -> stages.i.1, ConvNextBlockFlex_k -> stages.i.{2..};
+    the last GroupNorm (with 'convnext'/'fewnorm') -> out_norm, the last
+    Conv -> out.'''
+    out = {}
+    _dense(params['Dense_0'], 'input', out)
+    convs, norms = _indexed(params, 'Conv'), _indexed(params, 'GroupNorm')
+    blocks = _indexed(params, 'ConvNextBlockFlex')
+    for i, pc in enumerate(convs[:-1]):
+        if norms:
+            _norm(norms[i], f'stages.{i}.0', out)
+        _conv(pc, f'stages.{i}.1', out)
+        for j in range(blocks_per_scale):
+            _convnext_block(blocks[i * blocks_per_scale + j], f'stages.{i}.{2 + j}', out,
+                            ('conv1', 'conv2', 'conv3'))
+    if len(norms) == len(convs):
+        _norm(norms[-1], 'out_norm', out)
+    _conv(convs[-1], 'out', out)
+    return out
+
+
+def convert_convnext_discriminator(params, depths) -> dict:
+    '''Stage i (`depths[i]` blocks): stem Conv_0 then GroupNorm_0, or
+    GroupNorm_i then Conv_i; its ConvNeXtBlocks; LayerNorm_0 -> norm;
+    Dense_0 -> head.'''
+    out = {}
+    convs, norms = _indexed(params, 'Conv'), _indexed(params, 'GroupNorm')
+    blocks = iter(_indexed(params, 'ConvNeXtBlock'))
+    for i, depth in enumerate(depths):
+        first, second = (('0', '1') if i == 0 else ('1', '0'))
+        _conv(convs[i], f'stages.{i}.{first}', out)
+        _norm(norms[i], f'stages.{i}.{second}', out)
+        for j in range(depth):
+            _convnext_block(next(blocks), f'stages.{i}.{2 + j}', out, ('dwconv', 'pw1', 'pw2'))
+    _norm(params['LayerNorm_0'], 'norm', out)
+    _dense(params['Dense_0'], 'head', out)
+    return out
+
+
+def _van_block(p, prefix, out):
+    _raw(p, 'layer_scale1', f'{prefix}.layer_scale1', out)
+    _raw(p, 'layer_scale2', f'{prefix}.layer_scale2', out)
+    norms = _indexed(p, 'GroupNorm')
+    for pn, key in zip(norms, ('norm1', 'norm2')):
+        _norm(pn, f'{prefix}.{key}', out)
+    for pc, key in zip(_indexed(p['AttentionModule_0'], 'Conv'),
+                       ('conv0', 'conv_spatial', 'conv1')):
+        _conv(pc, f'{prefix}.attn.{key}', out)
+    for pc, key in zip(_indexed(p, 'Conv'), ('fc1', 'fc2')):
+        _conv(pc, f'{prefix}.{key}', out)
+
+
+def convert_van_generator(params, blocks_per_scale) -> dict:
+    '''Dense_0 -> input; scale i: GroupNorm_{i-1} -> stages.i.0 (i > 0),
+    Conv_i -> stages.i.1, Block_k -> stages.i.{2..}; the last GroupNorm ->
+    out_norm, the last Conv -> out ('in' norms have no parameters).'''
+    out = {}
+    _dense(params['Dense_0'], 'input', out)
+    convs, norms = _indexed(params, 'Conv'), _indexed(params, 'GroupNorm')
+    blocks = _indexed(params, 'Block')
+    for i, pc in enumerate(convs[:-1]):
+        if i > 0 and norms:
+            _norm(norms[i - 1], f'stages.{i}.0', out)
+        _conv(pc, f'stages.{i}.1', out)
+        for j in range(blocks_per_scale):
+            _van_block(blocks[i * blocks_per_scale + j], f'stages.{i}.{2 + j}', out)
+    if norms:
+        _norm(norms[-1], 'out_norm', out)
+    _conv(convs[-1], 'out', out)
+    return out
+
+
+def convert_van_discriminator(params, layers) -> dict:
+    '''Stage i: Conv_i -> stages.i.0, GroupNorm_i -> stages.i.1, its Blocks;
+    the last GroupNorm -> norm; Dense_0 -> head.'''
+    out = {}
+    convs, norms = _indexed(params, 'Conv'), _indexed(params, 'GroupNorm')
+    blocks = iter(_indexed(params, 'Block'))
+    for i, depth in enumerate(layers):
+        _conv(convs[i], f'stages.{i}.0', out)
+        if norms:
+            _norm(norms[i], f'stages.{i}.1', out)
+        for j in range(depth):
+            _van_block(next(blocks), f'stages.{i}.{2 + j}', out)
+    if norms:
+        _norm(norms[-1], 'norm', out)
+    _dense(params['Dense_0'], 'head', out)
     return out

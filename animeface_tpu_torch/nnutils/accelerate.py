@@ -54,15 +54,17 @@ class Accelerator:
     ...     state, metrics = train_step(state, batch)
     '''
 
-    def __init__(self, device=None, bf16: bool = True):
+    def __init__(self, device=None, bf16: bool = True, autotune: bool = True):
         self.device = default_device() if device is None else resolve_device(device)
         self.bf16 = bf16
         if self.device.type == 'cuda':
             # the settings the card's f32 checks were made under: convolutions
             # autotuned, no TF32 in matmuls or convolutions. A caller that
             # asked for deterministic algorithms gets no autotuning: it may
-            # pick another algorithm in each process
-            torch.backends.cudnn.benchmark = not torch.are_deterministic_algorithms_enabled()
+            # pick another algorithm in each process; `autotune=False` is a
+            # recipe's own choice
+            torch.backends.cudnn.benchmark = (
+                autotune and not torch.are_deterministic_algorithms_enabled())
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
 

@@ -37,12 +37,14 @@ def _fans(shape):
 
 
 def _truncated_normal(shape, generator=None):
-    '''N(0, 1) cut at +-2: the draws outside drawn again until none is.'''
+    '''N(0, 1) cut at +-2: the draws outside drawn again, in index order,
+    until none is (only the redrawn entries are checked again).'''
     w = torch.randn(shape, generator=generator)
-    out = w.abs() > 2
-    while bool(out.any()):
-        w[out] = torch.randn(int(out.sum()), generator=generator)
-        out = w.abs() > 2
+    flat = w.view(-1)
+    idx = (flat.abs() > 2).nonzero().squeeze(1)
+    while idx.numel():
+        flat[idx] = torch.randn(idx.numel(), generator=generator)
+        idx = idx[flat[idx].abs() > 2]
     return w
 
 

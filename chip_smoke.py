@@ -114,12 +114,13 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      pair the phase machine produces (G_transition, stable, D_transition):
      first each pair's f32 step on the card against the CPU from the
      seeded weights (`check_step_against_cpu`; StyleGAN's noise maps
-     zero), then 2 warm-up and 10 timed bf16 steps: finite
+     zero), then 2 warm-up and 5 timed bf16 steps: finite
      losses, no hand-written kernel launched, ms a step, images/s, peak
      memory, one profiled stable step; then the CLI, `python -m
-     animeface_tpu_torch <recipe> --synthetic-data --image-size 128
-     --num-images 64 --save 40`, through all six resolutions in bf16: the
-     phase order D_stab, (G_trans, G_stab, D_trans, D_stab) x 5, alpha from
+     animeface_tpu_torch <recipe> --synthetic-data --image-size 32
+     --num-images 64 --save 30`, through four resolutions in bf16 (the
+     64px and 128px ones are the direct steps' alone): the
+     phase order D_stab, (G_trans, G_stab, D_trans, D_stab) x 3, alpha from
      0 to 1 in each transition, finite losses, the grids at each
      snapshot's resolution, G_<step>.pt with its sidecar G_<step>.json,
      final.png and G_final.pt, no kernel launched, the seconds of each
@@ -133,15 +134,33 @@ Phases, in order; any failure ends the run with a nonzero exit code:
  16. the BigGAN family at the CLI's defaults (128px, channels 64, z 120,
      batch 32, bf16), BigGAN then SEBigGAN: the direct steps of
      `build_training` on one batch (2 warm-up and 5 timed steps; BigGAN
-     --deep 1 and 3) with the layers' GMAC and the step's TFLOP, ms a
-     step, images/s and peak memory, no hand-written kernel launched, one
-     profiled BigGAN step; the CLI, 17 steps saving every 16 and a resume
-     to 18 (`run_cli_path`); the f32 step on the card against the CPU from
-     the CLI run's last checkpoint (SEBigGAN's ICR step with its draws z
-     and n; the structurally zero gradients, conv biases that a train-mode
-     BatchNorm follows, left out of S and held below 1e-5 of their model's
-     largest norm); each part's seconds and each recipe's wall time;
- 17. the metrics, on the snapshots that phase 12 left in place: the
+     --deep 1 and 2) with the layers' GMAC and the step's
+     TFLOP, ms a step, images/s and peak memory, no hand-written kernel
+     launched, one profiled BigGAN step; the CLI, 5 steps saving every 4
+     and a resume to 6 (`run_cli_path`); the f32 step on the card
+     against the CPU from the CLI run's last checkpoint (SEBigGAN's ICR
+     step with its draws z and n; the structurally zero gradients, conv
+     biases that a train-mode BatchNorm follows, left out of S and held
+     below 1e-5 of their model's largest norm); each part's seconds and
+     each recipe's wall time;
+ 17. the simple-GAN recipes at their CLI's defaults (full width, batch 32,
+     bf16; TransGAN at 64px, where its last stage's attention over 4,096
+     tokens fits the card, HiT, ConvNeXt and VAN at 128px), cuDNN's
+     autotuning as each CLI has it (off for ConvNeXt and VAN): the direct
+     steps of `build_training` on one batch (the models' forward FLOP from
+     the shapes, 2 warm-up and 5 timed steps, ConvNeXt and VAN 1 and 2: ms
+     a step, images/s, TFLOP/s, peak memory, no hand-written kernel
+     launched, one profiled step); the CLI, 3
+     steps saving at 3 and a resume to 4 (`run_cli_path`); the f32 step on
+     the card against the CPU from the CLI run's last checkpoint (the R1
+     variant, HiT's plain one; TransGAN without dropout); each part's
+     seconds; then `python -m animeface_tpu_torch.generate` in-process on
+     the StyleGAN2 CLI run's newest G_<step>.pt at that run's widths: the
+     plain, truncated and mixed grids (16 images, bf16), each PNG's size,
+     finite images in [-1, 1], no hand-written kernel launched, and the
+     plain flow in f32 on the card against the CPU on 4 images within
+     1e-3 of the images' scale;
+ 18. the metrics, on the snapshots that phase 12 left in place: the
      InceptionV3 extractor at full size on random weights that do not
      collapse (He-normal kernels, BN variances in [0.5, 1.5], from a fixed
      seed, written to a temporary .npz in the converter's layout and read
@@ -151,19 +170,19 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      port's statistics, Frechet distance and KID (4 subsets) of two sets of
      2560 features in f64 on the card against a numpy copy of the same
      formulas within 1e-9 relative; `fid_cli.main` in-process on the
-     StyleGAN2 CLI run's newest G_<step>.pt (256px, 2048 samples, batch 64,
+     StyleGAN2 CLI run's newest G_<step>.pt (256px, 1024 samples, batch 64,
      --kid: finite FID and KID, the seconds of the real stream, the fake
      stream, the statistics and the KID); `fid_trend.main` in-process on
-     the ADA CLI run's result directory (128px, latent 512, 512 samples:
+     the ADA CLI run's result directory (128px, latent 512, 256 samples:
      trend.json with a finite fd for every snapshot, exit 0 when the gate
      holds and 1 when it fails, the verdict printed), and with `--model
-     PGGAN` on the PGGAN CLI run's (128px, each snapshot sampled at its
+     PGGAN` on the PGGAN CLI run's (32px, each snapshot sampled at its
      sidecar's resolution and alpha, which are printed); `VGGLoss(vgg=16)` at
      256px, batch 32, f32 (finite losses and gradient with respect to the
      fakes, ms a forward plus backward; at batch 2 the card against the
      CPU with the step gate's tolerances); no hand-written
      kernel launched; its wall time;
- 18. print one JSON line of the kernels, the card line, and last
+ 19. print one JSON line of the kernels, the card line, and last
      {"ok": true, "device": {...}}.
 The card-vs-CPU step gate (`check_step_against_cpu`) reruns the step on
 the CPU with the inputs moved by 1e-6 three times (`nudged_tolerances`):
@@ -180,9 +199,11 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import subprocess
 import sys
+import threading
 import time
 from types import SimpleNamespace
 
@@ -194,6 +215,7 @@ IMAGE = 256                    # StyleGAN2-ADA (two-pass warp kernels)
 ADA_IMAGE = 128                # the ADA recipe's default (line-pass kernels)
 ADA_STEPS = 16                 # one R1 cycle: gp_every = 16
 TOL = 1e-4                     # kernel vs plain, abs, f32 unit-scale images
+GATE_WORKERS = 4               # the step gate's CPU runs at a time, beside its card run
 BF16_RTOL = 1.6e-2             # kernel vs plain in bf16, of the output's scale
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
@@ -518,8 +540,11 @@ def profile_step(name, step, *args):
     '''Device time by kernel over one call step(*args) (torch.profiler),
     and the device's busy share of its wall time under the profiler. User
     annotations (e.g. `Optimizer.step#Adam.step`) span kernels already
-    counted, so they are left out. Returns the rows (ms, count, kernel
-    name), largest first.'''
+    counted, so they are left out. The device events are summed by name
+    straight from the trace (`kineto_results`): `key_averages()` first
+    builds an event object for every host op and launch, minutes for a step
+    of 100k launches. Returns the rows (ms, count, kernel name), largest
+    first.'''
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
 
@@ -529,10 +554,13 @@ def profile_step(name, step, *args):
         step(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                   and not getattr(e, 'is_user_annotation', False)),
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not getattr(e, 'is_user_annotation',
+                                                              lambda: False)():
+            ms, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+    rows = sorted(((ms, count, key) for key, (ms, count) in by_name.items() if ms > 0),
                   reverse=True)
     if not rows:
         print('profile: the profiler recorded no device time (busy share not measured)')
@@ -1413,6 +1441,9 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
     2 d), capped at `max_nudged` of the gradient's norm and of the loss's
     summands (the largest |output| of D in the CPU step); `zero_grad` and
     `nearest` (the card against its nearest CPU run) are its options.
+    The runs overlap: the card's in a thread of its own, the CPU's
+    GATE_WORKERS at a time, each worker with its share of the CPU's
+    intra-op threads and its own build of the models.
     `build_models(args, device)` returns (G, D, G_ema), G_ema None for a
     recipe without one. Prints S for each nudge, each loss's sensitivity
     and error over its tolerance, and each gate's worst error over its
@@ -1423,16 +1454,18 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
     states = {name: m if isinstance(m, dict) else m.state_dict()
               for name, m in (('G', run.G), ('D', run.D), ('G_ema', getattr(run, 'G_ema', None)))
               if m is not None}
-    built, run_s = {}, []
+    built, run_s = [], {}
+    local = threading.local()
 
-    def step_on(device, seed):
+    def step_on(device, seed, key=None):
         '''The step's losses, gradients and buffers (float64, on the CPU)
-        and the largest |output| of D in it.'''
+        and the largest |output| of D in it; its seconds go to run_s[key],
+        by default run_s[seed].'''
         t_run = time.perf_counter()
-        if device not in built:                    # one build a device, reloaded each run
-            built.clear()
-            built[device] = build_models(f32, device)
-        G, D, G_ema = built[device]
+        if getattr(local, 'models', None) is None:    # one build a thread, reloaded each run
+            local.models = build_models(f32, device)
+            built.append(local.models)
+        G, D, G_ema = local.models
         for name, mine in (('G', G), ('D', D), ('G_ema', G_ema)):
             if mine is not None:
                 mine.load_state_dict(states[name])
@@ -1442,7 +1475,7 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
         step = make_step(G, D, G_ema, torch.optim.SGD(G.parameters(), lr=1e-3),
                          torch.optim.SGD(D.parameters(), lr=1e-3))
         draws = draw(G, real, f32)
-        images = real
+        images = real.clone()                      # each run its own: the runs overlap
         if seed is not None:
             g = torch.Generator().manual_seed(seed)
             images = real + nudge * torch.randn(real.shape, generator=g)
@@ -1459,19 +1492,31 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
         for name, module in (('G', G), ('D', D)):
             got.update({f'grad {name}.{n}': p.grad.cpu() for n, p in module.named_parameters()})
             got.update({f'buffer {name}.{n}': b.cpu() for n, b in module.named_buffers()})
-        run_s.append(time.perf_counter() - t_run)
+        run_s[seed if key is None else key] = time.perf_counter() - t_run
         return {k: v.double() for k, v in got.items()}, max(sizes, default=0.0)
 
+    # the card run in a thread of its own and the CPU runs GATE_WORKERS at
+    # a time, the CPU's intra-op threads shared out among them
     t0 = time.perf_counter()
-    card, _ = step_on(dev, None)
-    want, d_size = step_on(cpu, None)
+    workers = min(GATE_WORKERS, 1 + nudges)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // workers))
     try:
-        tols = nudged_tolerances(want, (step_on(cpu, 7 + k)[0] for k in range(nudges)), rtol,
-                                 max_nudged, {k: d_size for k in want if k.startswith('loss')},
-                                 zero_grad, card if nearest else None)
-    except AssertionError as e:
-        raise AssertionError(f'{label}: {e}') from None
+        with concurrent.futures.ThreadPoolExecutor(1) as card_pool, \
+                concurrent.futures.ThreadPoolExecutor(workers) as pool:
+            card_run = card_pool.submit(step_on, dev, None, 'card')
+            want_run = pool.submit(step_on, cpu, None)
+            moved = pool.map(lambda k: step_on(cpu, 7 + k)[0], range(nudges))
+            want, d_size = want_run.result()
+            try:
+                tols = nudged_tolerances(want, moved, rtol, max_nudged,
+                                         {k: d_size for k in want if k.startswith('loss')},
+                                         zero_grad, card_run.result()[0] if nearest else None)
+            except AssertionError as e:
+                raise AssertionError(f'{label}: {e}') from None
+            card, _ = card_run.result()
     finally:
+        torch.set_num_threads(threads)
         built.clear()
     print(f'{label} f32 step: S per nudge (seeds 7-{6 + nudges}) '
           + ', '.join(f'{v:.3e} ({k})' for v, k in tols['per_nudge']))
@@ -1507,8 +1552,9 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
           + ', '.join(f'{k} {v[0]:.3e} ({v[1]})' for k, v in worst.items())
           + f'; gradient tol {tol:.3e} of the norm; worst/tol: loss {ratios["loss"]:.3f}, '
           f'buffer {ratios["buffer"]:.3f}, grad {ratios["grad"]:.3f}; '
-          f'{time.perf_counter() - t0:.2f} s (the card run {run_s[0]:.2f} s, the CPU runs '
-          + ', '.join(f'{v:.2f}' for v in run_s[1:]) + ' s, builds included)')
+          f'{time.perf_counter() - t0:.2f} s (the card run {run_s["card"]:.2f} s, the CPU runs '
+          + ', '.join(f'{run_s[k]:.2f}' for k in [None, *(7 + k for k in range(nudges))])
+          + f' s, builds included, {workers} at a time)')
     if bad:
         raise AssertionError(f'{label}: on the card, {len(bad)} tensors disagree with the CPU: '
                              + ', '.join(bad[:12]))
@@ -1670,12 +1716,17 @@ CLI_RUNS = {
     'WGAN': (('--image-size', '64'), 10, 5, 12, (1, 4)),
     'CIPS': ((), 17, 16, 18, (1, 15)),
     'FastGAN': (('--image-size', str(IMAGE)), 17, 16, 18, (1, 15)),
-    'BigGAN': ((), 17, 16, 18, (1, 15)),
-    'SEBigGAN': ((), 17, 16, 18, (1, 15)),
+    'BigGAN': ((), 5, 4, 6, (1, 3)),
+    'SEBigGAN': ((), 5, 4, 6, (1, 3)),
+    'TransGAN': (('--image-size', '64'), 3, 3, 4, (1, 2)),
+    'HiT': ((), 3, 3, 4, (1, 2)),
+    'ConvNeXt': ((), 3, 3, 4, (1, 2)),
+    'VAN': ((), 3, 3, 4, (1, 2)),
 }
 #: the sample grids of the recipes that set them: (images, images a row)
 CLI_GRIDS = {'DCGAN': (16, 4), 'GAN': (16, 4), 'WGAN': (25, 5), 'WGAN_gp': (25, 5),
-             'CIPS': (16, 4), 'FastGAN': (16, 4), 'BigGAN': (16, 4), 'SEBigGAN': (16, 4)}
+             'CIPS': (16, 4), 'FastGAN': (16, 4), 'BigGAN': (16, 4), 'SEBigGAN': (16, 4),
+             'TransGAN': (16, 4), 'HiT': (16, 4), 'ConvNeXt': (16, 4), 'VAN': (16, 4)}
 
 
 def _variant_recorder(module, seen):
@@ -1720,6 +1771,9 @@ def _recipe_module(recipe):
 def _cli_module(recipe):
     '''The module whose `run_training` (and `build_train_step`) the recipe's
     CLI calls: its own, or that of the recipe whose runtime it shares.'''
+    import importlib
+    if recipe in SIMPLE_GANS:
+        return importlib.import_module('animeface_tpu_torch.nnutils.simple_gan')
     shares = {'ADA': 'StyleGAN3', 'CIPS': 'StyleGAN3', 'GAN': 'DCGAN', 'WGAN': 'DCGAN',
               'WGAN_gp': 'DCGAN', 'SEBigGAN': 'BigGAN'}
     return _recipe_module(shares.get(recipe, recipe))
@@ -1942,19 +1996,25 @@ def run_direct_steps(recipe, dev, card, steps=10, warmup=5, label=None, override
     to 0 just before and read just after: finite losses, no hand-written
     kernel launched, ms a step, images/s and peak device memory; with
     `flop(run, args)` (one step's FLOP) also TFLOP/s; with `profile`, one
-    profiled step. Returns the images/s, the CLI phase's `direct_ips`.'''
+    profiled step.
+    Prints the build's seconds. Returns the images/s, the CLI phase's
+    `direct_ips`.'''
     label = label or recipe
     flags = CLI_RUNS[recipe][0]
     sizes = {'image_size': int(flags[1])} if flags else {}
     args = _recipe_module(recipe).default_args(**dict(sizes, **(overrides or {})))
+    t0 = time.perf_counter()
     run = _recipe_module(recipe).build_training(args, device=dev, seed=0)
+    t_build = time.perf_counter() - t0
     step_flop = flop(run, args) if flop else None
     real = _real_images(args, dev)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(warmup):
         run.train_step(run.state, real)
     torch.cuda.synchronize()
-    print(f'{label} warm-up ({warmup} steps): {time.perf_counter() - t0:.2f} s')
+    print(f'{label} build {t_build:.2f} s, warm-up ({warmup} steps): '
+          f'{time.perf_counter() - t0:.2f} s')
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
@@ -2071,7 +2131,7 @@ def check_cli_step_against_cpu(recipe, out, dev):
 #: channels 64, z 120, batch 32, bf16): (label, recipe, overrides, warm-up
 #: steps, timed steps, profiled)
 BIGGAN_DIRECT = (('BigGAN', 'BigGAN', {}, 2, 5, True),
-                 ('BigGAN-deep', 'BigGAN', {'deep': True}, 1, 3, False),
+                 ('BigGAN-deep', 'BigGAN', {'deep': True}, 1, 2, False),
                  ('SEBigGAN', 'SEBigGAN', {}, 2, 5, False))
 
 
@@ -2161,10 +2221,12 @@ def run_biggan_phase(recipe, dev, card):
 
 PROGRESSIVE_IMAGE = 128        # --image-size: max_depth 5, G and D widths up to 512
 PROGRESSIVE_MODES = (('t', 's'), ('s', 's'), ('s', 't'))   # G_trans, stable, D_trans
-PROGRESSIVE_STEPS = 10         # timed bf16 steps per mode pair, after 2
-PROGRESSIVE_CLI = ('--image-size', str(PROGRESSIVE_IMAGE), '--num-images', '64', '--save', '40')
+PROGRESSIVE_STEPS = 5          # timed bf16 steps per mode pair, after 2
+PROGRESSIVE_CLI_IMAGE = 32     # the CLI grows to 32px (max_depth 3); the steps run 128px
+PROGRESSIVE_CLI = ('--image-size', str(PROGRESSIVE_CLI_IMAGE), '--num-images', '64', '--save',
+                   '30')
 PROGRESSIVE_PHASES = (['D_stablization']
-                      + ['G_transition', 'G_stablization', 'D_transition', 'D_stablization'] * 5)
+                      + ['G_transition', 'G_stablization', 'D_transition', 'D_stablization'] * 3)
 KILL_IMAGE, KILL_AT = 16, (18, 21)   # the 8 -> 16px growth boundary, then inside its G_transition
 KILL_SAVE = 7                  # no snapshot at step 18: ckpt-18 is the boundary's alone
 KILL_RUNNER = """
@@ -2283,7 +2345,7 @@ def _epoch_groups(epochs):
 
 def run_progressive_cli(recipe, card, flags=PROGRESSIVE_CLI, want_phases=PROGRESSIVE_PHASES):
     """`python -m animeface_tpu_torch <recipe> --synthetic-data` through
-    every resolution to PROGRESSIVE_IMAGE, in-process, bf16. Checks: the
+    every resolution to PROGRESSIVE_CLI_IMAGE, in-process, bf16. Checks: the
     phase order `want_phases` (Step.get_mode is read once an epoch), alpha
     from 0 to 1 in every transition phase, finite losses, the grids at
     each snapshot's resolution, G_<step>.pt with its sidecar, final.png
@@ -2455,8 +2517,8 @@ METRICS_BATCH = 64             # fid_cli's default batch
 STATS_BATCHES = 40             # 2560 features a set: full-rank 2048-dim covariances
 KID_SUBSETS = 4                # the numpy copy's KID stays short
 VGG_BATCH = 32
-FID_SAMPLES = 2048             # fid_cli's --num-samples
-TREND_SAMPLES = 512            # fid_trend's --num-samples
+FID_SAMPLES = 1024             # fid_cli's --num-samples (KID's subsets of 1000 fit)
+TREND_SAMPLES = 256            # fid_trend's --num-samples
 METRICS_RTOL = 1e-9            # the port's statistics against the numpy copy
 
 
@@ -2818,10 +2880,200 @@ def run_metrics_path(dev, card, sg2_out, ada_out, pggan_out=None):
     run_fid_trend(ada_out, card)
     torch.cuda.empty_cache()
     if pggan_out is not None:
-        run_fid_trend(pggan_out, card, 'PGGAN', ('--image-size', str(PROGRESSIVE_IMAGE)))
+        run_fid_trend(pggan_out, card, 'PGGAN', ('--image-size', str(PROGRESSIVE_CLI_IMAGE)))
         torch.cuda.empty_cache()
     check_vgg_loss(dev, card)
     _check_no_launches('metrics')
+
+
+# ---------------------------------------------------- the simple-GAN recipes and generate
+
+#: the recipes on the simple-GAN trunk (`nnutils/simple_gan.py`); their CLI
+#: phases patch the trunk's `run_training`
+SIMPLE_GANS = ('TransGAN', 'HiT', 'ConvNeXt', 'VAN')
+#: their direct steps: (warm-up steps, timed steps); ConvNeXt's and VAN's
+#: R1 steps take 0.8 and 2.2 s on an H100, so fewer of them
+SIMPLE_GAN_DIRECT = {'TransGAN': (2, 5), 'HiT': (2, 5), 'ConvNeXt': (1, 2), 'VAN': (1, 2)}
+#: TransGAN's gate runs without dropout: the card and the CPU cannot draw
+#: the same masks (the CPU tests hold the dropout against flax's)
+NO_DROPOUT = dict(g_dropout=0.0, g_attn_dropout=0.0, d_dropout=0.0, d_attn_dropout=0.0)
+#: forwards' worth of G and D in one simple-GAN step, a backward as two: G
+#: 1 (the D phase, no grad) + 3; D 2 + 4 in the D phase and 1 + 1 in the G
+#: phase (its parameters frozen: the input gradient alone); R1 adds D's
+#: forward, its input-gradient backward and the double backward (4)
+SIMPLE_GAN_FORWARDS = {'plain': (4, 8), 'r1': (4, 14)}
+
+
+def forward_flop(fn, *inputs):
+    '''The FLOP of `fn(*inputs)` under torch.no_grad(): every op it
+    dispatches that `torch.utils.flop_counter`'s formulas cover (matmuls,
+    convolutions, attention products), from its operands' shapes.'''
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    class Count(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            out = func(*a, **(kw or {}))
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None:
+                self.total += formula(*a, **(kw or {}), out_val=out)
+            return out
+
+    with torch.no_grad(), Count() as counter:
+        fn(*inputs)
+    return counter.total
+
+
+def simple_gan_flop(run, args):
+    '''One timed step's FLOP at `args`' batch, from G's forward on one
+    latent and D's on two images (`forward_flop`) and SIMPLE_GAN_FORWARDS
+    for the variant of the timed steps; prints them. The model's work: R1's
+    double backward of a depthwise conv runs more (one convolution per
+    channel).'''
+    dev = next(run.G.parameters()).device
+    t0 = time.perf_counter()
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False       # no autotuning of these shapes for a count
+    try:
+        g = forward_flop(run.G, torch.zeros((1, run.G.latent_dim), device=dev))
+        d = forward_flop(run.D, torch.zeros((2, 3, args.image_size, args.image_size),
+                                            device=dev)) / 2
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    torch.cuda.synchronize()
+    t_count = time.perf_counter() - t0
+    variant = run.variant(SIMPLE_GAN_DIRECT[args.name][0])
+    fg, fd = SIMPLE_GAN_FORWARDS[variant]
+    flop = args.batch_size * (fg * g + fd * d)
+    print(f'{args.name}: G forward {g / 2e9:.2f} GMAC, D forward {d / 2e9:.2f} GMAC a sample; a '
+          f'{variant} step {flop / 1e12:.3f} TFLOP at batch {args.batch_size} '
+          f'({flop / 989e12 * 1e3:.2f} ms at the bf16 peak); counted in {t_count:.2f} s')
+    return flop
+
+
+def check_simple_gan_step_against_cpu(recipe, out, dev, overrides=None):
+    '''The f32 step on the card against the CPU at batch 2
+    (`check_step_against_cpu`) from the weights of the CLI run's last
+    checkpoint under `out` (the run at the recipe's defaults, its image
+    size, `overrides`): the R1 variant where gp_lambda is above 0
+    (TransGAN, ConvNeXt, VAN), else the plain one (HiT); TransGAN without
+    dropout.'''
+    from animeface_tpu_torch.nnutils import simple_gan
+
+    state, ran = _last_checkpoint(out)
+    module = _recipe_module(recipe)
+    args = module.default_args(**dict(overrides or {}, image_size=int(ran['image_size'])),
+                               **(NO_DROPOUT if recipe == 'TransGAN' else {}))
+    do_r1 = args.gp_lambda > 0
+    policy = getattr(args, 'policy', '')
+
+    def make_step(G, D, G_ema, g_opt, d_opt):
+        return module.build_step(args, G, D, G_ema, g_opt, d_opt, do_r1)
+
+    def draw(G, real, a):
+        return simple_gan.draw_step_inputs(a.latent_dim, real, torch.Generator().manual_seed(6),
+                                           policy)
+    return check_step_against_cpu(
+        f'{recipe} {args.image_size}px ({"R1" if do_r1 else "plain"})', module.build_models,
+        make_step, draw, args, SimpleNamespace(G=state['G'], D=state['D'],
+                                               G_ema=state.get('G_ema')), dev)
+
+
+def run_simple_gan_phase(recipe, dev, card, overrides=None):
+    '''One simple-GAN recipe at its CLI's defaults (TransGAN at 64px, the
+    others at 128px; full width, batch 32, bf16; `overrides` change them
+    and must match `CLI_RUNS`' flags): the direct steps of `build_training`
+    on one batch (`SIMPLE_GAN_DIRECT`; cuDNN autotunes in the warm-up
+    where the recipe's CLI does, not for ConvNeXt and VAN (their
+    `AUTOTUNE`); the models' FLOP, ms a step, images/s, peak memory, no
+    hand-written kernel launched, one profiled step), the CLI with its
+    resume beside the direct images/s (`run_cli_path`), the f32 step on
+    the card against the CPU. Prints each part's seconds.'''
+    parts = {}
+    warmup, steps = SIMPLE_GAN_DIRECT[recipe]
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = getattr(_recipe_module(recipe), 'AUTOTUNE', True)
+    try:
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        direct = run_direct_steps(recipe, dev, card, steps, warmup, overrides=overrides,
+                                  flop=simple_gan_flop, profile=True)
+        parts['direct'] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out, _ = run_cli_path(recipe, card, direct)
+        parts['CLI'] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        check_simple_gan_step_against_cpu(recipe, out, dev, overrides)
+        parts['f32 gate'] = time.perf_counter() - t
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    print(f'phase {recipe} parts: ' + ', '.join(f'{k} {v:.1f} s' for k, v in parts.items()))
+
+
+#: generate's three flows, their flags
+GENERATE_FLOWS = {'plain': (), 'truncation': ('--truncation', '0.7'),
+                  'mix': ('--mix-seed', '1', '--mix-layer', '8')}
+GENERATE_NUM = 16              # images a grid (the tool's default)
+GENERATE_HELD = 4              # images of the f32 card-vs-CPU hold
+
+
+def run_generate_path(dev, card, sg2_out):
+    '''`python -m animeface_tpu_torch.generate` in-process on the StyleGAN2
+    CLI run's newest G_<step>.pt, with that run's widths (its arguments):
+    the plain, truncated and mixed grids (16 images, 4 a row, bf16), each
+    PNG's size, finite images in [-1, 1], each flow's seconds; then the
+    plain flow in f32 on the card against the CPU on GENERATE_HELD images
+    with the same draws (made on the CPU), within 1e-3 of the images'
+    scale; no hand-written kernel launched.'''
+    import os
+    from animeface_tpu_torch import generate
+    from animeface_tpu_torch.checkpoint import Checkpointer
+
+    snaps = [f for f in os.listdir(sg2_out) if f.startswith('G_') and f[2:-3].isdigit()]
+    weights = os.path.join(sg2_out, max(snaps, key=lambda f: int(f[2:-3])))
+    ckpt_dir = os.path.join(sg2_out, 'checkpoint')
+    with open(os.path.join(ckpt_dir, f'ckpt-{Checkpointer(ckpt_dir).latest_step()}',
+                           'meta.json')) as f:
+        ran = json.load(f)['args']                  # the run's arguments, as strings
+    widths = ['--weights', weights, '--image-size', ran['image_size'], '--style-dim',
+              ran['style_dim'], '--channels', ran['channels'], '--max-channels',
+              ran['max_channels']]
+    if int(ran['map_num_layers']) != 8:
+        raise AssertionError(f'generate builds 8 mapping layers; the run had '
+                             f'{ran["map_num_layers"]}')
+    _reset_launches()
+    size = int(ran['image_size'])
+    for name, flags in GENERATE_FLOWS.items():
+        path = os.path.join(os.environ['ANIMEFACE_IMPLEMENTATIONS_DIR'], f'generate_{name}.png')
+        t0 = time.perf_counter()
+        images = generate.main([*widths, '--num', str(GENERATE_NUM), '--out', path, *flags])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if _png_size(path) != _grid_size(GENERATE_NUM, 4, size):
+            raise AssertionError(f'generate {name}: {path} is not {GENERATE_NUM} images 4 a row')
+        if not (bool(torch.isfinite(images).all()) and float(images.abs().max()) <= 1):
+            raise AssertionError(f'generate {name}: images not finite or outside [-1, 1]')
+        print(f'generate {name}: {GENERATE_NUM} images at {size}px, grid '
+              f'{_png_size(path)}, {dt:.2f} s (G built and loaded, bf16) on {card}')
+    _check_no_launches('generate')
+
+    args = generate.parse_args([*widths, '--num', str(GENERATE_HELD)])
+    cpu = torch.device('cpu')
+    t0 = time.perf_counter()
+    G_cpu = generate.build_generator(args, cpu, torch.float32)
+    draws = generate.draw_inputs(G_cpu, args, cpu)
+    want = generate.sample(G_cpu, args, draws)
+    got = generate.sample(generate.build_generator(args, dev, torch.float32), args,
+                          _to(draws, dev)).cpu()
+    err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    print(f'generate plain, f32, card vs CPU on {GENERATE_HELD} images: max err {err:.3e} of '
+          f'the scale (tol 1e-3), {time.perf_counter() - t0:.2f} s')
+    if not err <= 1e-3:
+        raise AssertionError(f'generate: the card is {err:.3e} of the scale off the CPU')
 
 
 def main() -> int:
@@ -2930,6 +3182,18 @@ def run_all() -> int:
         t = time.perf_counter()
         run_biggan_phase(recipe, dev, card)
         print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
+
+    # the simple-GAN recipes (TransGAN at 64px, HiT, ConvNeXt and VAN at
+    # 128px): direct steps, the CLI with its resume, the f32 step gate; then
+    # generate on the StyleGAN2 CLI run's snapshot
+    for recipe in SIMPLE_GANS:
+        t = time.perf_counter()
+        run_simple_gan_phase(recipe, dev, card)
+        print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    run_generate_path(dev, card, sg2_out)
+    print(f'phase generate: {time.perf_counter() - t:.1f} s')
 
     # the metrics, on the StyleGAN2, ADA and PGGAN CLI runs' snapshots
     torch.cuda.empty_cache()

@@ -85,6 +85,17 @@ REQUIRED = (
     'animeface_tpu_torch.metrics.fid_cli',
     'animeface_tpu_torch.metrics.fid_trend',
     'animeface_tpu_torch.nnutils.loss.vgg',
+    'animeface_tpu_torch.generate',
+    'animeface_tpu_torch.nnutils.simple_gan',
+    'animeface_tpu_torch.nnutils.module.linen',
+    'animeface_tpu_torch.implementations.TransGAN.model',
+    'animeface_tpu_torch.implementations.TransGAN.utils',
+    'animeface_tpu_torch.implementations.HiT.model',
+    'animeface_tpu_torch.implementations.HiT.utils',
+    'animeface_tpu_torch.implementations.ConvNeXt.model',
+    'animeface_tpu_torch.implementations.ConvNeXt.utils',
+    'animeface_tpu_torch.implementations.VAN.model',
+    'animeface_tpu_torch.implementations.VAN.utils',
 )
 
 

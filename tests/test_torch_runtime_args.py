@@ -2,7 +2,7 @@
 defaults and each recipe's (StyleGAN2, StyleGAN3, ADA, CIPS, FastGAN,
 DCGAN, GAN, WGAN, WGAN_gp, PGGAN, StyleGAN, BigGAN, SEBigGAN), exactly;
 the flags whose feature is not ported refuse a non-default value; an
-unknown recipe (or one the port has no CLI for yet, as TransGAN) gets the
+unknown recipe (or one the port has no CLI for yet, as EigenGAN) gets the
 list of those that have a CLI and exit code 2; without a card and
 without ANIMEFACE_PLATFORM=cpu the CLI fails instead of training on the
 CPU.'''
@@ -103,7 +103,7 @@ def test_one_device_mesh_is_accepted(mesh):
     t_argument.refuse_deferred(args)
 
 
-@pytest.mark.parametrize('name', ['NoSuchModel', 'TransGAN'])
+@pytest.mark.parametrize('name', ['NoSuchModel', 'EigenGAN'])
 def test_unknown_recipe_exits_2(name, monkeypatch, capsys):
     monkeypatch.setenv('ANIMEFACE_PLATFORM', 'cpu')
     with pytest.raises(SystemExit) as e:
