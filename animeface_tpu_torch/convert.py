@@ -2,7 +2,8 @@
 StyleGAN3 G and D, the CIPS G, FastGAN's G and D, the G and D of DCGAN
 (also WGAN's and WGAN-gp's) and GAN, PGGAN's and StyleGAN (v1)'s G and D,
 the metrics' InceptionV3 and VGG trunks, BigGAN's (and SEBigGAN's) G and
-D, and the G and D of TransGAN, HiT, ConvNeXt and VAN.
+D, the G and D of TransGAN, HiT, ConvNeXt and VAN, and those of pix2pix,
+SRGAN and ESRGAN (whose D is SRGAN's).
 
 Input: a flax params tree (nested dicts of numpy arrays, as
 `jax.device_get(variables['params'])` gives). Output: a dict of float32
@@ -26,8 +27,11 @@ is StyleGAN3's) and FastGAN (`convert_fastgan_generator`,
 `convert_pggan_discriminator`), StyleGAN v1 (`convert_stylegan1_generator`,
 `convert_stylegan1_discriminator`), InceptionV3 (`convert_inception`),
 VGG (`convert_vgg`) and BigGAN (`convert_biggan_generator`,
-`convert_biggan_discriminator`; SEBigGAN's too) and the simple-GAN models
-(`convert_{transgan,hit,convnext,van}_{generator,discriminator}`) after it.
+`convert_biggan_discriminator`; SEBigGAN's too), the simple-GAN models
+(`convert_{transgan,hit,convnext,van}_{generator,discriminator}`) and the
+paired recipes (`convert_pix2pix_{generator,discriminator}`,
+`convert_srgan_{generator,discriminator}`, `convert_esrgan_generator`)
+after it.
 
 Generator:                                 port
   map/ELRDense_i                           map.layers.i
@@ -787,3 +791,74 @@ def convert_van_discriminator(params, layers) -> dict:
         _norm(norms[-1], 'norm', out)
     _dense(params['Dense_0'], 'head', out)
     return out
+
+
+# ---------------------------------------------------------------- pix2pix, SRGAN, ESRGAN
+#
+# pix2pix (`implementations/pix2pix/model.py`): G Down_i/{Conv_0, GroupNorm_0}
+# -> downs.i.{conv, norm}, Up_i/{ConvTranspose_0, GroupNorm_0} ->
+# ups.i.{conv, norm}, ConvTranspose_0 -> out; D Conv_i -> convs.i,
+# GroupNorm_i -> norms.i. A ConvTranspose kernel is flipped in H and W
+# (flax does not flip, PyTorch does) and laid out [in, out, kh, kw].
+# SRGAN and ESRGAN (`implementations/{SRGAN,ESRGAN}/model.py`): each module
+# keeps its children in lists in flax's creation order, so a flax name
+# `<type>_i` is the port's `<list>.i` (`_SR_LISTS`); a MaybeSNConv carries
+# its spectral norm's u (batch_stats), a BatchNorm ('bn') its running
+# statistics.
+
+def _conv_transpose(p, prefix, out):
+    out[f'{prefix}.weight'] = _t(np.asarray(p['kernel'])[::-1, ::-1].transpose(2, 3, 0, 1))
+    if 'bias' in p:
+        out[f'{prefix}.bias'] = _t(p['bias'])
+
+
+def convert_pix2pix_generator(params) -> dict:
+    out = {}
+    for kind, port, layer, convert in (('Down', 'downs', 'Conv_0', _conv),
+                                       ('Up', 'ups', 'ConvTranspose_0', _conv_transpose)):
+        for i, pb in enumerate(_indexed(params, kind)):
+            convert(pb[layer], f'{port}.{i}.conv', out)
+            _norm(pb.get('GroupNorm_0'), f'{port}.{i}.norm', out)
+    _conv_transpose(params['ConvTranspose_0'], 'out', out)
+    return out
+
+
+def convert_pix2pix_discriminator(params) -> dict:
+    out = {}
+    for i, pc in enumerate(_indexed(params, 'Conv')):
+        _conv(pc, f'convs.{i}', out)
+    for i, pn in enumerate(_indexed(params, 'GroupNorm')):
+        _norm(pn, f'norms.{i}', out)
+    return out
+
+
+_SR_LISTS = {'MaybeSNConv': 'convs', 'GroupNorm': 'norms', 'BatchNorm': 'norms', 'PReLU': 'acts',
+             'ResBlock': 'blocks', 'RRDB': 'blocks', 'DenseBlock': 'dense',
+             'SingleScaleDiscriminator': 'scales'}
+
+
+def _sr_walk(p, s, prefix, out):
+    for key, sub in p.items():
+        kind, i = key.rsplit('_', 1)
+        port, stats = f'{prefix}{_SR_LISTS[kind]}.{i}', s.get(key, {})
+        if kind == 'MaybeSNConv':
+            _sn_layer(sub, stats, port, out)
+        elif kind == 'BatchNorm' and stats:
+            _batch_norm(sub, stats, f'{port}.norm', out)
+        elif kind in ('GroupNorm', 'BatchNorm'):
+            _norm(sub, f'{port}.norm', out)
+        elif kind == 'PReLU':
+            out[f'{port}.prelu.negative_slope'] = _t(sub['negative_slope'])
+        else:
+            _sr_walk(sub, stats, f'{port}.', out)
+
+
+def convert_srgan_generator(variables) -> dict:
+    '''SRGAN's G from flax variables ({'params', 'batch_stats'}).'''
+    out = {}
+    _sr_walk(variables['params'], variables.get('batch_stats', {}), '', out)
+    return out
+
+
+convert_srgan_discriminator = convert_srgan_generator
+convert_esrgan_generator = convert_srgan_generator

@@ -1,10 +1,11 @@
-'''Procedural synthetic image dataset.
+'''Procedural synthetic datasets, one for each task.
 
-Counterpart of `SyntheticImage` and `_face_image` in
-`animeface_tpu/dataset/synthetic.py`: anime-face-like compositions (a skin
-disc, a hair crescent and fringe, eyes, a mouth) with geometry and palette
-from `np.random.default_rng(seed * 1_000_003 + index)`, so the same seed
-gives bitwise the same images as the JAX package.
+Counterpart of `animeface_tpu/dataset/synthetic.py`: anime-face-like
+compositions (a skin disc, a hair crescent and fringe, eyes, a mouth) with
+geometry and palette from `np.random.default_rng(seed * 1_000_003 +
+index)`, and the paired stand-ins built on them (two domains, LR/HR, line
+art, gray, labels), so the same seed gives bitwise the same arrays as the
+JAX package.
 '''
 
 from __future__ import annotations
@@ -87,3 +88,100 @@ class SyntheticImage(WrappedDataset):
             if len(self._cache) < self._cache_max:
                 self._cache[idx] = q
         return q.astype(np.float32) / 127.5 - 1.0
+
+
+class SyntheticImageImage(WrappedDataset):
+    '''Unpaired two-domain stand-in: faces vs color-inverted faces.'''
+
+    def __init__(self, image_size: int, num_images: int = 2048, seed: int = 0) -> None:
+        self.a = SyntheticImage(image_size, num_images, seed)
+        self.b = SyntheticImage(image_size, num_images, seed + 7777)
+
+    def __len__(self) -> int:
+        return len(self.a)
+
+    def __getitem__(self, index):
+        return self.a[index], -self.b[index]
+
+
+class SyntheticLRHR(WrappedDataset):
+    '''Paired SR stand-in: box-downsampled LR + full-res HR.'''
+
+    def __init__(self, image_size: int, scale: float = 2., num_images: int = 2048,
+                 seed: int = 0) -> None:
+        self.hr = SyntheticImage(image_size, num_images, seed)
+        self.scale = int(scale)
+        self.image_size = image_size
+
+    def __len__(self) -> int:
+        return len(self.hr)
+
+    def __getitem__(self, index):
+        sr = self.hr[index]
+        s = self.scale
+        h = self.image_size // s * s
+        lr = sr[:h, :h].reshape(h // s, s, h // s, s, 3).mean(axis=(1, 3))
+        return lr, sr
+
+
+class SyntheticImageGray(WrappedDataset):
+    '''Colorization stand-in: image + its ITU-R 601 luminance channel.'''
+
+    _LUMA = np.asarray([0.299, 0.587, 0.114], np.float32)
+
+    def __init__(self, image_size: int, num_images: int = 2048, seed: int = 0) -> None:
+        self.base = SyntheticImage(image_size, num_images, seed)
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def __getitem__(self, index):
+        img = self.base[index]
+        gray = (img @ self._LUMA)[..., None]
+        return img, gray.astype(np.float32)
+
+
+class SyntheticImageXDoG(WrappedDataset):
+    '''Sketch-colorization stand-in: image + gradient-magnitude "line art".'''
+
+    def __init__(self, image_size: int, num_images: int = 2048, seed: int = 0) -> None:
+        self.base = SyntheticImage(image_size, num_images, seed)
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def __getitem__(self, index):
+        img = self.base[index]
+        g = img.mean(axis=-1)
+        gy = np.abs(np.diff(g, axis=0, prepend=g[:1]))
+        gx = np.abs(np.diff(g, axis=1, prepend=g[:, :1]))
+        edges = np.clip((gx + gy) * 4.0, 0, 1)
+        xdog = (1.0 - edges)[..., None] * 2.0 - 1.0  # white bg, dark lines
+        return img, xdog.astype(np.float32)
+
+
+class SyntheticImageLabel(WrappedDataset):
+    '''Labeled stand-in: label = hair-color bucket (num_classes buckets).'''
+
+    def __init__(self, image_size: int, num_images: int = 2048,
+                 num_classes: int = 10, seed: int = 0) -> None:
+        self.base = SyntheticImage(image_size, num_images, seed)
+        self.num_classes = num_classes
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def __getitem__(self, index):
+        rng = np.random.default_rng(int(index) * 999_983 + 17)
+        return self.base[index], np.int32(rng.integers(self.num_classes))
+
+    def inverse_transform(self, label):
+        return [f'class_{int(v)}' for v in np.asarray(label).reshape(-1)]
+
+
+class SyntheticImageOnehot(SyntheticImageLabel):
+    def __getitem__(self, index):
+        img, label = super().__getitem__(index)
+        onehot = np.zeros((self.num_classes,), np.float32)
+        onehot[int(label)] = 1.0
+        return img, onehot

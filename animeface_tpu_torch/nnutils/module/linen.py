@@ -1,12 +1,20 @@
-'''flax.linen's Dense, Conv, LayerNorm, GroupNorm and Dropout in PyTorch.
+'''flax.linen's Dense, Conv, ConvTranspose, LayerNorm, GroupNorm and Dropout
+in PyTorch.
 
-The layers of the simple-GAN models (TransGAN, HiT, ConvNeXt, VAN) keep
-flax's semantics where PyTorch's defaults differ:
+The layers of the simple-GAN models (TransGAN, HiT, ConvNeXt, VAN) and of
+pix2pix keep flax's semantics where PyTorch's defaults differ:
   * an explicit compute `dtype`: Dense and Conv cast the input, the weight
     and the bias to it, as flax's `dtype` does (the parameters stay float32);
   * kernels from flax's default `lecun_normal` (truncated normal, variance
     1 / fan_in) unless an initializer is given (`init(shape, generator)` on
     the torch layout, `nnutils/initialize.py`), biases at 0;
+  * ConvTranspose: flax's `nn.ConvTranspose` does not flip its kernel
+    and PyTorch's `conv_transpose2d` does, so the weight is the flax
+    kernel flipped in H and W, laid out [in, out, kh, kw]
+    (`convert.py:_conv_transpose`); flax's 'SAME' pads the dilated input by
+    ceil((k + s - 2) / 2) before and the rest after (k - 1 and s - 1 when
+    s > k - 1), which is PyTorch's `padding` k - 1 - that when both sides
+    are equal (4x4 at stride 2 is padding 1);
   * LayerNorm and GroupNorm: epsilon 1e-6 (PyTorch's default is 1e-5),
     statistics in float32 as E[x^2] - E[x]^2 clipped at 0 (flax's fast
     variance), y = (x - mean) * (rsqrt(var + eps) * scale) + bias in
@@ -80,6 +88,32 @@ class Conv(nn.Module):
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b, self.stride,
                         self.padding, self.dilation, self.groups)
+
+
+class ConvTranspose(nn.Module):
+    '''flax `nn.ConvTranspose(features, (k, k), strides=(s, s),
+    padding='SAME')` over NCHW; weight [in, out, k, k] (module docstring).'''
+
+    def __init__(self, in_ch, features, kernel_size, stride=1, use_bias=True,
+                 dtype=torch.float32, init=None, generator=None):
+        super().__init__()
+        pad_len = kernel_size + stride - 2          # flax's SAME: before, then after
+        before = kernel_size - 1 if stride > kernel_size - 1 else -(-pad_len // 2)
+        if pad_len - before != before:
+            raise ValueError(f'flax SAME pads a {kernel_size}x{kernel_size} transposed conv at '
+                             f'stride {stride} unevenly, which conv_transpose2d cannot')
+        # flax's fans are those of [out, in, k, k]: drawn there, then laid out
+        self.weight = nn.Parameter(_param((features, in_ch, kernel_size, kernel_size), init,
+                                          generator).detach().transpose(0, 1).contiguous())
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.stride = stride
+        self.padding = kernel_size - 1 - before
+        self.dtype = dtype
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype), b, self.stride,
+                                  self.padding)
 
 
 def _normalize(xf, mean, var, weight, bias, eps, shape):

@@ -136,8 +136,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      `build_training` on one batch (2 warm-up and 5 timed steps; BigGAN
      --deep 1 and 2) with the layers' GMAC and the step's
      TFLOP, ms a step, images/s and peak memory, no hand-written kernel
-     launched, one profiled BigGAN step; the CLI, 5 steps saving every 4
-     and a resume to 6 (`run_cli_path`); the f32 step on the card
+     launched, one profiled BigGAN step; the CLI a block shallower at
+     64px, 5 steps saving every 4 and a resume to 6 (`run_cli_path`); the
+     f32 step on the card
      against the CPU from the CLI run's last checkpoint (SEBigGAN's ICR
      step with its draws z and n; the structurally zero gradients, conv
      biases that a train-mode BatchNorm follows, left out of S and held
@@ -148,19 +149,36 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      tokens fits the card, HiT, ConvNeXt and VAN at 128px), cuDNN's
      autotuning as each CLI has it (off for ConvNeXt and VAN): the direct
      steps of `build_training` on one batch (the models' forward FLOP from
-     the shapes, 2 warm-up and 5 timed steps, ConvNeXt and VAN 1 and 2: ms
+     the shapes, 2 warm-up and 5 timed steps, ConvNeXt and VAN 1 and 1: ms
      a step, images/s, TFLOP/s, peak memory, no hand-written kernel
-     launched, one profiled step); the CLI, 3
-     steps saving at 3 and a resume to 4 (`run_cli_path`); the f32 step on
-     the card against the CPU from the CLI run's last checkpoint (the R1
-     variant, HiT's plain one; TransGAN without dropout); each part's
-     seconds; then `python -m animeface_tpu_torch.generate` in-process on
+     launched, one profiled step); the CLI, 3 steps saving at 3 and a
+     resume to 4 (`run_cli_path`; a stage shallower: TransGAN at 32px,
+     ConvNeXt and VAN at 64px); the f32 step on the card against the CPU
+     from the CLI run's last checkpoint (the R1 variant, HiT's plain one;
+     TransGAN without dropout); each part's seconds; then `python -m
+     animeface_tpu_torch.generate` in-process on
      the StyleGAN2 CLI run's newest G_<step>.pt at that run's widths: the
      plain, truncated and mixed grids (16 images, bf16), each PNG's size,
      finite images in [-1, 1], no hand-written kernel launched, and the
      plain flow in f32 on the card against the CPU on 4 images within
      1e-3 of the images' scale;
- 18. the metrics, on the snapshots that phase 12 left in place: the
+ 18. the paired data tasks: every task's loader (`build_loader`: image,
+     celeba, sr, xdog, gray, label, onehot) on its synthetic stand-in at
+     the CLI's defaults (128px, batch 32, 128 images) for one epoch
+     through `Accelerator.iter_loader`: each batch on the card, images
+     NCHW float32 in [-1, 1], int32 labels and one-hot rows, each task's
+     seconds and ms a batch; then pix2pix (xdog: line art to image), SRGAN
+     and ESRGAN (sr: 64px to 128px) at their CLI's defaults (full width,
+     batch 32, bf16): the direct steps of `build_training` on one paired
+     batch (the models' and VGG16's forward FLOP, 2 warm-up and 5 timed
+     steps: ms a step, images/s, TFLOP/s, peak memory, no hand-written
+     kernel launched, one profiled step), the CLI, 5 steps saving at 4 and
+     a resume to 6 (the grids of three columns), and the f32 step on the
+     card against the CPU from the CLI run's last checkpoint (every image
+     of the pair nudged; SRGAN's and ESRGAN's spectral norms' u after the
+     step held; conv biases that an instance norm follows structurally
+     zero); each part's seconds and the phases' total;
+ 19. the metrics, on the snapshots that phase 12 left in place: the
      InceptionV3 extractor at full size on random weights that do not
      collapse (He-normal kernels, BN variances in [0.5, 1.5], from a fixed
      seed, written to a temporary .npz in the converter's layout and read
@@ -179,10 +197,10 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      PGGAN` on the PGGAN CLI run's (32px, each snapshot sampled at its
      sidecar's resolution and alpha, which are printed); `VGGLoss(vgg=16)` at
      256px, batch 32, f32 (finite losses and gradient with respect to the
-     fakes, ms a forward plus backward; at batch 2 the card against the
-     CPU with the step gate's tolerances); no hand-written
+     fakes, ms a forward plus backward; at batch 2 pooled to 128px the
+     card against the CPU with the step gate's tolerances); no hand-written
      kernel launched; its wall time;
- 19. print one JSON line of the kernels, the card line, and last
+ 20. print one JSON line of the kernels, the card line, and last
      {"ok": true, "device": {...}}.
 The card-vs-CPU step gate (`check_step_against_cpu`) reruns the step on
 the CPU with the inputs moved by 1e-6 three times (`nudged_tolerances`):
@@ -1264,6 +1282,11 @@ def _to(obj, device):
     return obj
 
 
+def _map_images(fn, real):
+    '''`fn` of the reals, or of each image of a paired batch.'''
+    return tuple(fn(x) for x in real) if isinstance(real, tuple) else fn(real)
+
+
 def _real_images(args, dev, seed=1):
     g = torch.Generator(device=dev).manual_seed(seed)
     channels = getattr(args, 'image_channels', 3)
@@ -1420,7 +1443,7 @@ def _print_loss_gate(label, want, tols, ratios):
 
 def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev, batch=2,
                            rtol=1e-3, nudge=1e-6, max_nudged=0.1, nudges=3, zero_grad=None,
-                           nearest=False):
+                           nearest=False, make_real=None, d_logits=None):
     '''One training step at full width in f32 on the card (TF32 off) and on
     the CPU, from `run`'s weights and buffers (its G, D and G_ema: modules
     or state dicts) and the same draws (made on the CPU). Plain SGD on both
@@ -1445,12 +1468,18 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
     GATE_WORKERS at a time, each worker with its share of the CPU's
     intra-op threads and its own build of the models.
     `build_models(args, device)` returns (G, D, G_ema), G_ema None for a
-    recipe without one. Prints S for each nudge, each loss's sensitivity
+    recipe without one. A paired recipe's batch is a tuple of images
+    (`make_real(args, device, seed)` makes it; every image is nudged) and
+    its draws may have no z; `d_logits(output)` picks the tensors of D's
+    output whose largest |value| is the losses' summand scale (default:
+    the output's tensors, or those of its tuple or list).
+    Prints S for each nudge, each loss's sensitivity
     and error over its tolerance, and each gate's worst error over its
     tolerance; returns those ratios.'''
     f32 = SimpleNamespace(**dict(vars(args), no_bf16=True, batch_size=batch))
     cpu = torch.device('cpu')
-    real = _real_images(f32, cpu, seed=5)
+    real = (make_real or _real_images)(f32, cpu, seed=5)
+    d_logits = d_logits or (lambda o: o if isinstance(o, (tuple, list)) else (o,))
     states = {name: m if isinstance(m, dict) else m.state_dict()
               for name, m in (('G', run.G), ('D', run.D), ('G_ema', getattr(run, 'G_ema', None)))
               if m is not None}
@@ -1475,16 +1504,17 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
         step = make_step(G, D, G_ema, torch.optim.SGD(G.parameters(), lr=1e-3),
                          torch.optim.SGD(D.parameters(), lr=1e-3))
         draws = draw(G, real, f32)
-        images = real.clone()                      # each run its own: the runs overlap
+        images = _map_images(torch.clone, real)    # each run its own: the runs overlap
         if seed is not None:
             g = torch.Generator().manual_seed(seed)
-            images = real + nudge * torch.randn(real.shape, generator=g)
-            draws['z'] = draws['z'] + nudge * torch.randn(draws['z'].shape, generator=g)
+            images = _map_images(lambda x: x + nudge * torch.randn(x.shape, generator=g), real)
+            if 'z' in draws:
+                draws['z'] = draws['z'] + nudge * torch.randn(draws['z'].shape, generator=g)
         sizes = []
         hook = D.register_forward_hook(lambda m, i, o: sizes.append(max(
-            (float(t.detach().abs().max()) for t in (o if isinstance(o, (tuple, list)) else (o,))
-             if isinstance(t, torch.Tensor)), default=0.0)))
-        metrics = step(state, images.to(device), _to(draws, device))
+            (float(t.detach().abs().max()) for t in d_logits(o) if isinstance(t, torch.Tensor)),
+            default=0.0)))
+        metrics = step(state, _to(images, device), _to(draws, device))
         hook.remove()
         if isinstance(metrics, tuple):
             metrics = metrics[0]
@@ -1716,17 +1746,21 @@ CLI_RUNS = {
     'WGAN': (('--image-size', '64'), 10, 5, 12, (1, 4)),
     'CIPS': ((), 17, 16, 18, (1, 15)),
     'FastGAN': (('--image-size', str(IMAGE)), 17, 16, 18, (1, 15)),
-    'BigGAN': ((), 5, 4, 6, (1, 3)),
-    'SEBigGAN': ((), 5, 4, 6, (1, 3)),
-    'TransGAN': (('--image-size', '64'), 3, 3, 4, (1, 2)),
+    'BigGAN': (('--image-size', '64'), 5, 4, 6, (1, 3)),
+    'SEBigGAN': (('--image-size', '64'), 5, 4, 6, (1, 3)),
+    'TransGAN': (('--image-size', '32'), 3, 3, 4, (1, 2)),
     'HiT': ((), 3, 3, 4, (1, 2)),
-    'ConvNeXt': ((), 3, 3, 4, (1, 2)),
-    'VAN': ((), 3, 3, 4, (1, 2)),
+    'ConvNeXt': (('--image-size', '64'), 3, 3, 4, (1, 2)),
+    'VAN': (('--image-size', '64'), 3, 3, 4, (1, 2)),
+    'pix2pix': ((), 5, 4, 6, (1, 3)),
+    'SRGAN': ((), 5, 4, 6, (1, 3)),
+    'ESRGAN': ((), 5, 4, 6, (1, 3)),
 }
 #: the sample grids of the recipes that set them: (images, images a row)
 CLI_GRIDS = {'DCGAN': (16, 4), 'GAN': (16, 4), 'WGAN': (25, 5), 'WGAN_gp': (25, 5),
              'CIPS': (16, 4), 'FastGAN': (16, 4), 'BigGAN': (16, 4), 'SEBigGAN': (16, 4),
-             'TransGAN': (16, 4), 'HiT': (16, 4), 'ConvNeXt': (16, 4), 'VAN': (16, 4)}
+             'TransGAN': (16, 4), 'HiT': (16, 4), 'ConvNeXt': (16, 4), 'VAN': (16, 4),
+             'pix2pix': (12, 6), 'SRGAN': (18, 9), 'ESRGAN': (18, 9)}
 
 
 def _variant_recorder(module, seen):
@@ -1774,6 +1808,8 @@ def _cli_module(recipe):
     import importlib
     if recipe in SIMPLE_GANS:
         return importlib.import_module('animeface_tpu_torch.nnutils.simple_gan')
+    if recipe in PAIRED:
+        return importlib.import_module('animeface_tpu_torch.nnutils.paired')
     shares = {'ADA': 'StyleGAN3', 'CIPS': 'StyleGAN3', 'GAN': 'DCGAN', 'WGAN': 'DCGAN',
               'WGAN_gp': 'DCGAN', 'SEBigGAN': 'BigGAN'}
     return _recipe_module(shares.get(recipe, recipe))
@@ -1987,7 +2023,7 @@ def run_cli_path(recipe, card, direct_ips=None, want_line=(0, 0)):
 
 
 def run_direct_steps(recipe, dev, card, steps=10, warmup=5, label=None, overrides=None,
-                     flop=None, profile=False):
+                     flop=None, profile=False, make_real=None):
     '''The recipe's `build_training` at the image size of its CLI phase and
     its defaults otherwise (`overrides` change them; full width, batch 32,
     bf16) on one batch of reals, without the loader and Status: `warmup`
@@ -1996,7 +2032,7 @@ def run_direct_steps(recipe, dev, card, steps=10, warmup=5, label=None, override
     to 0 just before and read just after: finite losses, no hand-written
     kernel launched, ms a step, images/s and peak device memory; with
     `flop(run, args)` (one step's FLOP) also TFLOP/s; with `profile`, one
-    profiled step.
+    profiled step. `make_real(args, device)` makes a paired recipe's batch.
     Prints the build's seconds. Returns the images/s, the CLI phase's
     `direct_ips`.'''
     label = label or recipe
@@ -2007,7 +2043,7 @@ def run_direct_steps(recipe, dev, card, steps=10, warmup=5, label=None, override
     run = _recipe_module(recipe).build_training(args, device=dev, seed=0)
     t_build = time.perf_counter() - t0
     step_flop = flop(run, args) if flop else None
-    real = _real_images(args, dev)
+    real = (make_real or _real_images)(args, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(warmup):
@@ -2129,10 +2165,11 @@ def check_cli_step_against_cpu(recipe, out, dev):
 
 #: the direct steps of the BigGAN family at the CLI's defaults (128px,
 #: channels 64, z 120, batch 32, bf16): (label, recipe, overrides, warm-up
-#: steps, timed steps, profiled)
-BIGGAN_DIRECT = (('BigGAN', 'BigGAN', {}, 2, 5, True),
-                 ('BigGAN-deep', 'BigGAN', {'deep': True}, 1, 2, False),
-                 ('SEBigGAN', 'SEBigGAN', {}, 2, 5, False))
+#: steps, timed steps, profiled). Their CLIs and gates run a block
+#: shallower at 64px (`CLI_RUNS`): the gates' CPU runs a quarter of 128px's
+BIGGAN_DIRECT = (('BigGAN', 'BigGAN', {'image_size': 128}, 2, 5, True),
+                 ('BigGAN-deep', 'BigGAN', {'image_size': 128, 'deep': True}, 1, 2, False),
+                 ('SEBigGAN', 'SEBigGAN', {'image_size': 128}, 2, 5, False))
 
 
 def biggan_macs(G, D, image_size):
@@ -2193,23 +2230,23 @@ def biggan_flop(label, recipe, run, args):
 
 
 def run_biggan_phase(recipe, dev, card):
-    '''One recipe of the BigGAN family: its direct steps (`BIGGAN_DIRECT`),
-    the CLI with its resume beside the direct images/s (`run_cli_path`), and
+    '''One recipe of the BigGAN family: its direct steps at 128px
+    (`BIGGAN_DIRECT`), the CLI with its resume at 64px (`run_cli_path`), and
     the f32 step on the card against the CPU from the CLI run's last
     checkpoint. Prints each part's seconds.'''
     import functools
 
-    parts, direct = {}, {}
+    parts = {}
     for label, rec, overrides, warmup, steps, profile in BIGGAN_DIRECT:
         if rec == recipe:
             torch.cuda.empty_cache()
             t = time.perf_counter()
-            direct[label] = run_direct_steps(rec, dev, card, steps, warmup, label, overrides,
-                                             functools.partial(biggan_flop, label, rec), profile)
+            run_direct_steps(rec, dev, card, steps, warmup, label, overrides,
+                             functools.partial(biggan_flop, label, rec), profile)
             parts[f'direct {label}'] = time.perf_counter() - t
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    out, _ = run_cli_path(recipe, card, direct[recipe])
+    out, _ = run_cli_path(recipe, card)          # at 64px: no direct images/s beside it
     parts['CLI'] = time.perf_counter() - t
     t = time.perf_counter()
     check_cli_step_against_cpu(recipe, out, dev)
@@ -2517,6 +2554,7 @@ METRICS_BATCH = 64             # fid_cli's default batch
 STATS_BATCHES = 40             # 2560 features a set: full-rank 2048-dim covariances
 KID_SUBSETS = 4                # the numpy copy's KID stays short
 VGG_BATCH = 32
+VGG_CHECK_IMAGE = 128          # the card-vs-CPU check's images, pooled from 256px
 FID_SAMPLES = 1024             # fid_cli's --num-samples (KID's subsets of 1000 fit)
 TREND_SAMPLES = 256            # fid_trend's --num-samples
 METRICS_RTOL = 1e-9            # the port's statistics against the numpy copy
@@ -2791,7 +2829,8 @@ def check_vgg_loss(dev, card, batch=2, rtol=1e-3, nudge=1e-6, nudges=3):
     VGG_BATCH, f32: the style, content and vgg losses and the gradient of
     their sum with respect to the fakes finite, ms for a forward plus
     backward of the three. Then each loss and its gradient at `batch` on
-    the card against the CPU, with the step gate's tolerances
+    the images average-pooled to VGG_CHECK_IMAGE, on the card against the
+    CPU, with the step gate's tolerances
     (`nudged_tolerances`) from `nudges` CPU reruns with the reals and fakes
     moved by `nudge` * N(0, 1): each loss within `rtol` of its value plus
     twice its own sensitivity, the gradients in L2 within (`rtol` + 2 S) of
@@ -2830,7 +2869,10 @@ def check_vgg_loss(dev, card, batch=2, rtol=1e-3, nudge=1e-6, nudges=3):
           f'backward of the three, peak device memory '
           f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on {card}')
 
-    real2, fake2 = real[:batch].cpu(), fake[:batch].cpu()
+    # the card-vs-CPU check on the images pooled to VGG_CHECK_IMAGE: its CPU
+    # runs a quarter of 256px's
+    pool = METRICS_IMAGE // VGG_CHECK_IMAGE
+    real2, fake2 = (torch.nn.functional.avg_pool2d(x[:batch], pool).cpu() for x in (real, fake))
     t0 = time.perf_counter()
     want = _vgg_grads(loss_cpu, real2, fake2)
     got = _vgg_grads(loss, real2.to(dev), fake2.to(dev))
@@ -2843,7 +2885,7 @@ def check_vgg_loss(dev, card, batch=2, rtol=1e-3, nudge=1e-6, nudges=3):
     gated = gate_ratios(got, want, tols)
     loss_ratio = _print_loss_gate('VGGLoss', want, tols, gated)
     grad_errs = [gated[f'grad {n}'] * tols['grad_tol'] for n in VGG_LOSSES]
-    print(f'VGGLoss card vs CPU at batch {batch}, {METRICS_IMAGE}px (style, content, vgg): '
+    print(f'VGGLoss card vs CPU at batch {batch}, {VGG_CHECK_IMAGE}px (style, content, vgg): '
           f'losses worst err/tol {loss_ratio:.3f}; gradients '
           f'{", ".join(f"{e:.2e}" for e in grad_errs)} of their norm (tolerance '
           f'{tols["grad_tol"]:.3e}, S {tols["S"]:.3e} over {nudges} nudges of {nudge}); '
@@ -2893,7 +2935,13 @@ def run_metrics_path(dev, card, sg2_out, ada_out, pggan_out=None):
 SIMPLE_GANS = ('TransGAN', 'HiT', 'ConvNeXt', 'VAN')
 #: their direct steps: (warm-up steps, timed steps); ConvNeXt's and VAN's
 #: R1 steps take 0.8 and 2.2 s on an H100, so fewer of them
-SIMPLE_GAN_DIRECT = {'TransGAN': (2, 5), 'HiT': (2, 5), 'ConvNeXt': (1, 2), 'VAN': (1, 2)}
+SIMPLE_GAN_DIRECT = {'TransGAN': (2, 5), 'HiT': (2, 5), 'ConvNeXt': (1, 1), 'VAN': (1, 1)}
+#: the direct steps' image size where the CLI and its gate run smaller (one
+#: G stage fewer): TransGAN's CLI at 32px (its gate's CPU attention over
+#: 1,024 tokens, not 4,096), ConvNeXt's and VAN's at 64px (their gates' CPU
+#: runs of R1's double backward a quarter of 128px's; their direct steps
+#: took as long at 64px as at 128px, host-bound, first step included)
+SIMPLE_GAN_DIRECT_IMAGE = {'TransGAN': 64, 'ConvNeXt': 128, 'VAN': 128}
 #: TransGAN's gate runs without dropout: the card and the CPU cannot draw
 #: the same masks (the CPU tests hold the dropout against flax's)
 NO_DROPOUT = dict(g_dropout=0.0, g_attn_dropout=0.0, d_dropout=0.0, d_attn_dropout=0.0)
@@ -2982,28 +3030,35 @@ def check_simple_gan_step_against_cpu(recipe, out, dev, overrides=None):
 
 
 def run_simple_gan_phase(recipe, dev, card, overrides=None):
-    '''One simple-GAN recipe at its CLI's defaults (TransGAN at 64px, the
-    others at 128px; full width, batch 32, bf16; `overrides` change them
-    and must match `CLI_RUNS`' flags): the direct steps of `build_training`
-    on one batch (`SIMPLE_GAN_DIRECT`; cuDNN autotunes in the warm-up
+    '''One simple-GAN recipe at its CLI's defaults (full width, batch 32,
+    bf16; `overrides` change them and must match `CLI_RUNS`' flags): the
+    direct steps of `build_training` on one batch (TransGAN at 64px, the
+    others at 128px; `SIMPLE_GAN_DIRECT`; cuDNN autotunes in the warm-up
     where the recipe's CLI does, not for ConvNeXt and VAN (their
     `AUTOTUNE`); the models' FLOP, ms a step, images/s, peak memory, no
     hand-written kernel launched, one profiled step), the CLI with its
-    resume beside the direct images/s (`run_cli_path`), the f32 step on
-    the card against the CPU. Prints each part's seconds.'''
+    resume beside the direct images/s (`run_cli_path`; TransGAN at 32px,
+    ConvNeXt and VAN at 64px, without them), the f32 step on the card
+    against the CPU from the CLI's checkpoint. Prints each part's
+    seconds.'''
     parts = {}
     warmup, steps = SIMPLE_GAN_DIRECT[recipe]
+    direct_overrides = dict(overrides or {})
+    if recipe in SIMPLE_GAN_DIRECT_IMAGE:
+        direct_overrides['image_size'] = SIMPLE_GAN_DIRECT_IMAGE[recipe]
     benchmark = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = getattr(_recipe_module(recipe), 'AUTOTUNE', True)
     try:
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        direct = run_direct_steps(recipe, dev, card, steps, warmup, overrides=overrides,
+        direct = run_direct_steps(recipe, dev, card, steps, warmup, overrides=direct_overrides,
                                   flop=simple_gan_flop, profile=True)
         parts['direct'] = time.perf_counter() - t
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        out, _ = run_cli_path(recipe, card, direct)
+        # no direct images/s to stand beside where the CLI runs smaller
+        out, _ = run_cli_path(recipe, card,
+                              None if recipe in SIMPLE_GAN_DIRECT_IMAGE else direct)
         parts['CLI'] = time.perf_counter() - t
         torch.cuda.empty_cache()
         t = time.perf_counter()
@@ -3011,6 +3066,164 @@ def run_simple_gan_phase(recipe, dev, card, overrides=None):
         parts['f32 gate'] = time.perf_counter() - t
     finally:
         torch.backends.cudnn.benchmark = benchmark
+    print(f'phase {recipe} parts: ' + ', '.join(f'{k} {v:.1f} s' for k, v in parts.items()))
+
+
+# ---------------------------------------------------- the paired tasks and recipes
+
+#: the tasks of `build_dataset`, each iterated once on its synthetic stand-in
+DATA_TASKS = ('image', 'celeba', 'sr', 'xdog', 'gray', 'label', 'onehot')
+DATA_IMAGES = 128              # a task's stand-in: 4 batches of 32 at 128px
+#: the recipes on the paired runtime (`nnutils/paired.py`); their CLI phases
+#: patch its `run_training`
+PAIRED = ('pix2pix', 'SRGAN', 'ESRGAN')
+PAIRED_DIRECT = (2, 5)         # direct steps: warm-up, timed
+#: forwards' worth of G, D and the VGG16 trunk in one step, a backward as
+#: two: G 1 (the D phase, no grad) + 3; D 2 + 4 in the D phase and 1 + 1 in
+#: the G phase (its parameters frozen: the input gradient alone), ESRGAN's
+#: second real forward there 1 more; the content loss's trunk on HR and on
+#: G's output with its input gradient, 1 + 2
+PAIRED_FORWARDS = {'pix2pix': (4, 8, 0), 'SRGAN': (4, 8, 3), 'ESRGAN': (4, 9, 3)}
+
+
+def run_data_path(dev, card):
+    """Every task's loader on its synthetic stand-in (`build_loader`, the
+    CLI's defaults: 128px, batch 32; DATA_IMAGES images) over one epoch
+    through `Accelerator.iter_loader`: each batch on the card, its images
+    NCHW float32 in [-1, 1] (the labels int32, the one-hot rows float32);
+    the seconds of the epoch and the ms a batch, the producer thread's
+    drawing and the copy included. No hand-written kernel launched."""
+    from animeface_tpu_torch.dataset import build_loader
+    from animeface_tpu_torch.nnutils.accelerate import Accelerator
+    from animeface_tpu_torch.utils.argument import get_default_parser
+
+    args = get_default_parser().parse_args(['data', '--synthetic-data', '--num-images',
+                                            str(DATA_IMAGES)])
+    benchmark = torch.backends.cudnn.benchmark
+    accel = Accelerator(dev)
+    torch.backends.cudnn.benchmark = benchmark
+    _reset_launches()
+    for task in DATA_TASKS:
+        loader = build_loader(args, task)
+        t0 = time.perf_counter()
+        batches = list(accel.iter_loader(loader))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if len(batches) != DATA_IMAGES // args.batch_size:
+            raise AssertionError(f'data {task}: {len(batches)} batches')
+        leaves = batches[0] if isinstance(batches[0], tuple) else (batches[0],)
+        for leaf in (x for b in batches for x in (b if isinstance(b, tuple) else (b,))):
+            if leaf.device.type != dev.type or leaf.shape[0] != args.batch_size:
+                raise AssertionError(f'data {task}: a batch of {tuple(leaf.shape)} on '
+                                     f'{leaf.device}')
+            if leaf.ndim == 4 and not (leaf.dtype == torch.float32
+                                       and float(leaf.abs().max()) <= 1):
+                raise AssertionError(f'data {task}: images not float32 in [-1, 1]')
+        shapes = ', '.join(f'{tuple(x.shape)} {str(x.dtype)[6:]}' for x in leaves)
+        print(f'data {task}: {type(loader.dataset).__name__}, {len(batches)} batches of '
+              f'{shapes}, {dt:.2f} s, {dt * 1e3 / len(batches):.1f} ms a batch (one producer '
+              f'thread, first epoch) on {card}')
+    _check_no_launches('data')
+
+
+def paired_batch(args, dev, seed=1):
+    """One batch of the recipe's task at `args`' sizes on `dev`, uniform in
+    [-1, 1] from `seed`: (target RGB, source line art) for pix2pix, (LR,
+    HR) for SRGAN and ESRGAN."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    size = args.image_size
+    shapes = (((3, size), (1, size)) if args.name == 'pix2pix' else
+              ((args.image_channels, int(size // args.scale)), (args.image_channels, size)))
+    return tuple(torch.rand((args.batch_size, c, n, n), generator=g, device=dev) * 2 - 1
+                 for c, n in shapes)
+
+
+def paired_flop(run, args):
+    """One step's FLOP at `args`' batch from G's, D's and the VGG trunk's
+    forwards on one sample (`forward_flop`, train=False: no buffer moves)
+    and PAIRED_FORWARDS; prints them."""
+    dev = next(run.G.parameters()).device
+    one = paired_batch(SimpleNamespace(**dict(vars(args), batch_size=1)), dev)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False       # no autotuning of these shapes for a count
+    try:
+        if args.name == 'pix2pix':
+            target, source = one
+            g = forward_flop(run.G, source)
+            d = forward_flop(run.D, torch.cat([target, source], dim=1))
+            v = 0
+        else:
+            lr, hr = one
+            g = forward_flop(lambda x: run.G(x, train=False), lr)
+            d = forward_flop(lambda x: run.D(x, train=False), hr)
+            v = forward_flop(run.vgg.model, hr)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    fg, fd, fv = PAIRED_FORWARDS[args.name]
+    flop = args.batch_size * (fg * g + fd * d + fv * v)
+    print(f'{args.name}: G forward {g / 2e9:.2f} GMAC, D forward {d / 2e9:.2f} GMAC'
+          + (f', VGG16 forward {v / 2e9:.2f} GMAC (f32)' if v else '')
+          + f' a sample; a step {flop / 1e12:.3f} TFLOP at batch {args.batch_size}')
+    return flop
+
+
+def check_paired_step_against_cpu(recipe, out, dev):
+    """The f32 step on the card against the CPU at batch 2
+    (`check_step_against_cpu`) from the weights and buffers of the CLI
+    run's last checkpoint under `out`, on a paired batch (`paired_batch`,
+    every image nudged); SRGAN and ESRGAN with one VGG16 trunk a device
+    (its fixed-seed weights) and S over D's logits; conv biases that an
+    instance norm follows are structurally zero (ZERO_GRAD)."""
+    from animeface_tpu_torch.implementations.SRGAN import utils as srgan
+    from animeface_tpu_torch.nnutils.loss import LSGANLoss, NonSaturatingLoss
+    from animeface_tpu_torch.nnutils.loss.vgg import VGGLoss
+
+    state, ran = _last_checkpoint(out)
+    module = _recipe_module(recipe)
+    args = module.default_args(image_size=int(ran['image_size']))
+    d_logits = None
+    if recipe == 'pix2pix':
+        def make_step(G, D, G_ema, g_opt, d_opt):
+            return module.build_train_step(G, D, g_opt, d_opt, LSGANLoss(), args.pixelwise_gamma)
+    else:
+        vggs = {d.type: VGGLoss(d, vgg=16) for d in (torch.device('cpu'), dev)}
+
+        def make_step(G, D, G_ema, g_opt, d_opt):
+            return srgan.build_train_step(
+                G, D, g_opt, d_opt, NonSaturatingLoss(), vggs[next(G.parameters()).device.type],
+                args.adv_lambda, args.vgg_lambda, relativistic=recipe == 'ESRGAN')
+
+        def d_logits(outs):
+            return [logits for logits, _ in outs]
+    return check_step_against_cpu(
+        f'{recipe} {args.image_size}px', module.build_models, make_step, lambda G, real, a: {},
+        args, SimpleNamespace(G=state['G'], D=state['D']), dev, zero_grad=ZERO_GRAD,
+        make_real=paired_batch, d_logits=d_logits)
+
+
+def run_paired_phase(recipe, dev, card):
+    """One paired recipe at its CLI's defaults (128px, full width, batch
+    32, bf16; pix2pix's UNet to 1x1, SRGAN's and ESRGAN's LR at 64px): the
+    direct steps of `build_training` on one batch (`PAIRED_DIRECT`; the
+    models' FLOP, ms a step, images/s, TFLOP/s, peak memory, no
+    hand-written kernel launched, one profiled step), the CLI with its
+    resume beside the direct images/s (`run_cli_path`), the f32 step on the
+    card against the CPU. Prints each part's seconds."""
+    parts = {}
+    warmup, steps = PAIRED_DIRECT
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    direct = run_direct_steps(recipe, dev, card, steps, warmup, flop=paired_flop, profile=True,
+                              make_real=paired_batch)
+    parts['direct'] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out, _ = run_cli_path(recipe, card, direct)
+    parts['CLI'] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    check_paired_step_against_cpu(recipe, out, dev)
+    parts['f32 gate'] = time.perf_counter() - t
     print(f'phase {recipe} parts: ' + ', '.join(f'{k} {v:.1f} s' for k, v in parts.items()))
 
 
@@ -3183,8 +3396,9 @@ def run_all() -> int:
         run_biggan_phase(recipe, dev, card)
         print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
 
-    # the simple-GAN recipes (TransGAN at 64px, HiT, ConvNeXt and VAN at
-    # 128px): direct steps, the CLI with its resume, the f32 step gate; then
+    # the simple-GAN recipes (direct steps: TransGAN at 64px, the others at
+    # 128px; the CLIs of TransGAN at 32px, ConvNeXt and VAN at 64px): direct
+    # steps, the CLI with its resume, the f32 step gate; then
     # generate on the StyleGAN2 CLI run's snapshot
     for recipe in SIMPLE_GANS:
         t = time.perf_counter()
@@ -3194,6 +3408,17 @@ def run_all() -> int:
     t = time.perf_counter()
     run_generate_path(dev, card, sg2_out)
     print(f'phase generate: {time.perf_counter() - t:.1f} s')
+
+    # the paired data tasks, then pix2pix (xdog), SRGAN and ESRGAN (sr) at
+    # their CLI's defaults: direct steps, the CLI with its resume, the gate
+    t_paired = time.perf_counter()
+    run_data_path(dev, card)
+    print(f'phase data: {time.perf_counter() - t_paired:.1f} s')
+    for recipe in PAIRED:
+        t = time.perf_counter()
+        run_paired_phase(recipe, dev, card)
+        print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
+    print(f'phases data and paired recipes: {time.perf_counter() - t_paired:.1f} s')
 
     # the metrics, on the StyleGAN2, ADA and PGGAN CLI runs' snapshots
     torch.cuda.empty_cache()

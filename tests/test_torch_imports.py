@@ -1,4 +1,6 @@
-'''The port imports nothing of JAX or of the JAX package, and its entry
+'''The port imports nothing of JAX or of the JAX package, nor sklearn or
+PIL at module level (the card machine may lack them: the label encoders
+and the hue jitter are numpy, PIL decodes only on demand), and its entry
 points refuse a missing card instead of falling back to the CPU.'''
 
 import pathlib
@@ -12,7 +14,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 GUARD = '''
 import importlib, pkgutil, sys
-for name in ('jax', 'jaxlib', 'flax', 'optax', 'animeface_tpu'):
+for name in ('jax', 'jaxlib', 'flax', 'optax', 'animeface_tpu', 'sklearn', 'PIL'):
     sys.modules[name] = None          # any import of these now raises
 import animeface_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(animeface_tpu_torch.__path__,
@@ -96,6 +98,16 @@ REQUIRED = (
     'animeface_tpu_torch.implementations.ConvNeXt.utils',
     'animeface_tpu_torch.implementations.VAN.model',
     'animeface_tpu_torch.implementations.VAN.utils',
+    'animeface_tpu_torch.dataset.portrait',
+    'animeface_tpu_torch.dataset.danbooru',
+    'animeface_tpu_torch.dataset.aahq',
+    'animeface_tpu_torch.nnutils.paired',
+    'animeface_tpu_torch.implementations.pix2pix.model',
+    'animeface_tpu_torch.implementations.pix2pix.utils',
+    'animeface_tpu_torch.implementations.SRGAN.model',
+    'animeface_tpu_torch.implementations.SRGAN.utils',
+    'animeface_tpu_torch.implementations.ESRGAN.model',
+    'animeface_tpu_torch.implementations.ESRGAN.utils',
 )
 
 
