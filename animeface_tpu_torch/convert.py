@@ -2,8 +2,9 @@
 StyleGAN3 G and D, the CIPS G, FastGAN's G and D, the G and D of DCGAN
 (also WGAN's and WGAN-gp's) and GAN, PGGAN's and StyleGAN (v1)'s G and D,
 the metrics' InceptionV3 and VGG trunks, BigGAN's (and SEBigGAN's) G and
-D, the G and D of TransGAN, HiT, ConvNeXt and VAN, and those of pix2pix,
-SRGAN and ESRGAN (whose D is SRGAN's).
+D, the G and D of TransGAN, HiT, ConvNeXt and VAN, those of pix2pix,
+SRGAN and ESRGAN (whose D is SRGAN's), and those of NAFNet, Restormer
+(whose D is NAFNet's), pix2pixHD and CycleGAN.
 
 Input: a flax params tree (nested dicts of numpy arrays, as
 `jax.device_get(variables['params'])` gives). Output: a dict of float32
@@ -31,7 +32,9 @@ VGG (`convert_vgg`) and BigGAN (`convert_biggan_generator`,
 (`convert_{transgan,hit,convnext,van}_{generator,discriminator}`) and the
 paired recipes (`convert_pix2pix_{generator,discriminator}`,
 `convert_srgan_{generator,discriminator}`, `convert_esrgan_generator`)
-after it.
+and the line-art recipes (`convert_nafnet_{generator,discriminator}`,
+`convert_restormer_generator`, `convert_pix2pixhd_{generator,
+discriminator}`, `convert_cyclegan_{generator,discriminator}`) after it.
 
 Generator:                                 port
   map/ELRDense_i                           map.layers.i
@@ -862,3 +865,99 @@ def convert_srgan_generator(variables) -> dict:
 
 convert_srgan_discriminator = convert_srgan_generator
 convert_esrgan_generator = convert_srgan_generator
+
+
+# ---------------------------------------------------------------- the line-art recipes
+# NAFNet, Restormer, pix2pixHD and CycleGAN (`implementations/<recipe>/model.py`)
+# keep their layers in lists in flax's creation order, so `<type>_i` is the
+# port's `<list>.i` (`_LINE_ART_LISTS`), with a suffix where the port's
+# layer wraps the flax one (pix2pixHD's `ConvBlock.conv`, CycleGAN's
+# `ReflectConv.conv` and `Norm.norm`). A norm without parameters ('in' in
+# NAFNet and pix2pixHD) has no entry on either side; a BatchNorm carries its
+# running statistics, a ReflectConv its spectral norm's u (batch_stats). The
+# scalar parameters (NAFNet's and Restormer's layer scales, Restormer's
+# temperature) carry over as they are.
+
+_LINE_ART_LISTS = {
+    'nafnet': {'Conv': ('convs', ''), 'NAFBlock': ('blocks', ''), 'ConvBlock': ('conv', None),
+               'GroupNorm': ('norms', ''), 'BatchNorm': ('norms', '')},
+    'restormer': {'Conv': ('convs', ''), 'Block': ('blocks', ''), 'LayerNorm': ('norms', ''),
+                  'MDTA': ('attn', None), 'GDFN': ('ff', None)},
+    'pix2pixhd': {'Conv': ('convs', '.conv'), 'ResBlock': ('blocks', ''),
+                  'ConvTranspose': ('ups', '.conv')},
+    'cyclegan': {'ReflectConv': ('convs', '.conv'), 'GroupNorm': ('norms', '.norm'),
+                 'BatchNorm': ('norms', '.norm'), 'ResBlock': ('blocks', '')},
+}
+
+
+def _line_art_walk(kind, p, s, prefix, out):
+    for key, sub in p.items():
+        if not isinstance(sub, dict):                      # a scalar parameter
+            _raw(p, key, f'{prefix}{key}', out)
+            continue
+        flax_type, i = key.rsplit('_', 1)
+        port, suffix = _LINE_ART_LISTS[kind][flax_type]
+        port = f'{prefix}{port}' if suffix is None else f'{prefix}{port}.{i}{suffix}'
+        stats = s.get(key, {})
+        if flax_type == 'ConvTranspose':
+            _conv_transpose(sub, port, out)
+        elif flax_type == 'ReflectConv':
+            _sn_layer(sub, stats, port, out)
+        elif flax_type == 'BatchNorm' and stats:
+            _batch_norm(sub, stats, port, out)
+        elif flax_type in ('GroupNorm', 'LayerNorm', 'BatchNorm'):
+            _norm(sub, port, out)
+        elif flax_type == 'Conv':
+            _conv(sub, port, out)
+        else:
+            _line_art_walk(kind, sub, stats, f'{port}.', out)
+
+
+def _line_art(kind, variables, prefix=''):
+    '''The port's state dict from flax `variables` ({'params', 'batch_stats'}
+    or a params tree alone).'''
+    p, s = ((variables['params'], variables.get('batch_stats', {})) if 'params' in variables
+            else (variables, {}))
+    out = {}
+    _line_art_walk(kind, p, s, prefix, out)
+    return out
+
+
+def convert_nafnet_generator(params) -> dict:
+    return _line_art('nafnet', params)
+
+
+def convert_nafnet_discriminator(variables) -> dict:
+    '''NAFNet's (and Restormer's) D from flax variables ({'params',
+    'batch_stats'}: BatchNorm's running statistics).'''
+    return _line_art('nafnet', variables)
+
+
+def convert_restormer_generator(params) -> dict:
+    return _line_art('restormer', params)
+
+
+def convert_pix2pixhd_generator(params) -> dict:
+    '''`global_g` and `local_g` from flax's G params.'''
+    return {k: v for name in ('global_g', 'local_g')
+            for k, v in _line_art('pix2pixhd', params[name], f'{name}.').items()}
+
+
+def convert_pix2pixhd_discriminator(params) -> dict:
+    '''`scale_i` -> `scales.i`: Conv_0-3 -> convs.j.conv, Conv_4 -> out.'''
+    out = {}
+    for i, scale in enumerate(_indexed(params, 'scale')):
+        convs = _indexed(scale, 'Conv')
+        for j, pc in enumerate(convs[:-1]):
+            _conv(pc, f'scales.{i}.convs.{j}.conv', out)
+        _conv(convs[-1], f'scales.{i}.out', out)
+    return out
+
+
+def convert_cyclegan_generator(variables, prefix='') -> dict:
+    '''One G from flax variables ({'params', 'batch_stats'}: u); `prefix`
+    names it in the recipe's module dict ('G_ab.', 'G_ba.').'''
+    return _line_art('cyclegan', variables, prefix)
+
+
+convert_cyclegan_discriminator = convert_cyclegan_generator

@@ -156,7 +156,7 @@ def build_recipe(G, D, args, device, test_batch, relativistic):
     if test_batch is not None:
         lr, hr = paired.nchw(test_batch, device)
         shown = F.interpolate(lr, size=hr.shape[-2:], mode='nearest-exact')
-        sample_fn = paired.make_grid_sampler(lambda: G(lr, train=False), shown, hr)
+        sample_fn = paired.make_grid_sampler(lambda: G(lr, train=False), (shown, hr))
     return SimpleNamespace(G=G, D=D, g_opt=g_opt, d_opt=d_opt, vgg=vgg, state=dict(step=0),
                            train_step=train_step, sample_fn=sample_fn)
 

@@ -139,8 +139,7 @@ def build_training(args, device=None, seed=0, test_batch=None):
     sample_fn = None
     if test_batch is not None:
         target, source = paired.nchw(test_batch, next(G.parameters()).device)
-        shown = source.expand(-1, 3, -1, -1) if source.shape[1] == 1 else source
-        sample_fn = paired.make_grid_sampler(lambda: G(source), shown, target)
+        sample_fn = paired.make_grid_sampler(lambda: G(source), (paired.as_rgb(source), target))
     return SimpleNamespace(G=G, D=D, g_opt=g_opt, d_opt=d_opt, state=state,
                            train_step=train_step, sample_fn=sample_fn)
 

@@ -14,12 +14,16 @@ pix2pix keep flax's semantics where PyTorch's defaults differ:
     (`convert.py:_conv_transpose`); flax's 'SAME' pads the dilated input by
     ceil((k + s - 2) / 2) before and the rest after (k - 1 and s - 1 when
     s > k - 1), which is PyTorch's `padding` k - 1 - that when both sides
-    are equal (4x4 at stride 2 is padding 1);
+    are equal (4x4 at stride 2 is padding 1); where they differ (3x3 at
+    stride 2 pads 2 before and 1 after) the transposed conv runs at the
+    smaller side's padding and the output is cropped on the other side
+    (the first 2H x 2W of padding 0 for 3x3 at stride 2);
   * LayerNorm and GroupNorm: epsilon 1e-6 (PyTorch's default is 1e-5),
     statistics in float32 as E[x^2] - E[x]^2 clipped at 0 (flax's fast
     variance), y = (x - mean) * (rsqrt(var + eps) * scale) + bias in
-    float32, cast to `dtype`; GroupNorm over NCHW, its groups over channels
-    and all of H and W;
+    float32, cast to `dtype`; LayerNorm over the last axis, or over the
+    channels of each pixel of NCHW with `dim=1` (flax's LayerNorm on NHWC);
+    GroupNorm over NCHW, its groups over channels and all of H and W;
   * `f32(x)` is flax's `astype(float32)` for the float32 islands (attention
     logits, float32 heads): bf16 and f32 become f32, a float64 run stays
     float64;
@@ -99,21 +103,30 @@ class ConvTranspose(nn.Module):
         super().__init__()
         pad_len = kernel_size + stride - 2          # flax's SAME: before, then after
         before = kernel_size - 1 if stride > kernel_size - 1 else -(-pad_len // 2)
-        if pad_len - before != before:
+        # PyTorch's padding on each side: the output loses that many rows
+        lose_before, lose_after = kernel_size - 1 - before, kernel_size - 1 - (pad_len - before)
+        if min(lose_before, lose_after) < 0:
             raise ValueError(f'flax SAME pads a {kernel_size}x{kernel_size} transposed conv at '
-                             f'stride {stride} unevenly, which conv_transpose2d cannot')
+                             f'stride {stride} unevenly, past its kernel, which neither '
+                             'conv_transpose2d nor a crop of it gives')
         # flax's fans are those of [out, in, k, k]: drawn there, then laid out
         self.weight = nn.Parameter(_param((features, in_ch, kernel_size, kernel_size), init,
                                           generator).detach().transpose(0, 1).contiguous())
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.stride = stride
-        self.padding = kernel_size - 1 - before
+        self.padding = min(lose_before, lose_after)
+        # the rows still to crop (before, after) past the symmetric padding
+        self.crop = (lose_before - self.padding, lose_after - self.padding)
         self.dtype = dtype
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype), b, self.stride,
-                                  self.padding)
+        y = F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype), b, self.stride,
+                               self.padding)
+        if self.crop != (0, 0):
+            before, after = self.crop
+            y = y[..., before:y.shape[-2] - after, before:y.shape[-1] - after]
+        return y
 
 
 def _normalize(xf, mean, var, weight, bias, eps, shape):
@@ -132,11 +145,12 @@ def _stats(xf, dims):
     return mean, var
 
 
-def layer_norm(x, weight, bias, eps=1e-6, dtype=torch.float32):
-    '''flax `nn.LayerNorm` over the last axis.'''
+def layer_norm(x, weight, bias, eps=1e-6, dtype=torch.float32, dim=-1):
+    '''flax `nn.LayerNorm` over the last axis, or over axis 1 of NCHW.'''
     xf = f32(x)
-    mean, var = _stats(xf, (-1,))
-    return _normalize(xf, mean, var, weight, bias, eps, (-1,)).to(dtype)
+    mean, var = _stats(xf, (dim,))
+    shape = (-1,) if dim == -1 else (1, -1) + (1,) * (x.ndim - 2)
+    return _normalize(xf, mean, var, weight, bias, eps, shape).to(dtype)
 
 
 def group_norm(x, num_groups, weight, bias, eps=1e-6, dtype=torch.float32):
@@ -154,14 +168,17 @@ def group_norm(x, num_groups, weight, bias, eps=1e-6, dtype=torch.float32):
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, features, eps=1e-6, dtype=torch.float32):
+    '''flax `nn.LayerNorm` over the last axis; `dim=1` over the channels of
+    NCHW.'''
+
+    def __init__(self, features, eps=1e-6, dtype=torch.float32, dim=-1):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
-        self.eps, self.dtype = eps, dtype
+        self.eps, self.dtype, self.dim = eps, dtype, dim
 
     def forward(self, x):
-        return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps, self.dtype, self.dim)
 
 
 class GroupNorm(nn.Module):

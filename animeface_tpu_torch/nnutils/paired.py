@@ -1,12 +1,13 @@
-'''The runtime the paired recipes share (pix2pix, SRGAN, ESRGAN).
+'''The runtime the paired recipes share (pix2pix, SRGAN, ESRGAN, NAFNet,
+Restormer, pix2pixHD, CycleGAN).
 
 Counterpart of the tails of `main` and `train` in the JAX
-`implementations/{pix2pix,SRGAN,ESRGAN}/utils.py`: the task's loader and
-its test batch (the dataset's first `num_test` samples in order, one
-worker), the sample grid of three columns (the condition shown as an
-image, the target, G's output for the condition), and the loop:
-`run_training` around a recipe's `build_training` namespace, with G's
-state dict as `G_<step>.pt`.
+`implementations/{pix2pix,SRGAN,ESRGAN,NAFNet,pix2pixHD,CycleGAN}/utils.py`:
+the task's loader and its test batch (the dataset's first `num_test`
+samples in order, one worker), the sample grid (G's output for the test
+batch interleaved with given columns, as the JAX `make_image_grid`), and
+the loop: `run_training` around a recipe's `build_training` namespace,
+with G's state dict as `G_<step>.pt`.
 '''
 
 from __future__ import annotations
@@ -19,12 +20,13 @@ from animeface_tpu_torch.nnutils.trainer import run_training
 from animeface_tpu_torch.nnutils.training import train_state
 
 
-def load_task(args, task: str):
+def load_task(args, task: str, num_test: int | None = None):
     '''The training loader of `task` (`build_loader`, which refuses files
     nothing here decodes) and the test batch: its dataset's first
-    `args.num_test` samples, in order, as numpy NHWC arrays.'''
+    `num_test` (default `args.num_test`) samples, in order, as numpy NHWC
+    arrays.'''
     loader = build_loader(args, task)
-    test_batch = next(iter(DataLoader(loader.dataset, args.num_test, shuffle=False,
+    test_batch = next(iter(DataLoader(loader.dataset, num_test or args.num_test, shuffle=False,
                                       num_workers=1)))
     return loader, test_batch
 
@@ -35,14 +37,21 @@ def nchw(batch, device):
                  for a in batch)
 
 
-def make_grid_sampler(generate, shown, target):
-    '''`sample()`: `generate()` under torch.no_grad(), interleaved with
-    `shown` and `target` into the rows (shown, target, generated) of one
-    NCHW batch, as the JAX grid's `make_image_grid(shown, target, gen)`.'''
+def as_rgb(images):
+    '''NCHW images with three channels: a single channel repeated.'''
+    return images.expand(-1, 3, -1, -1) if images.shape[1] == 1 else images
+
+
+def make_grid_sampler(generate, before, after=()):
+    '''`sample()`: `generate()` under torch.no_grad(), interleaved with the
+    NCHW batches `before` and `after` into the images (*before, generated,
+    *after) of each test sample in turn, one NCHW batch, as the JAX grid's
+    `make_image_grid(*before, gen, *after)`.'''
     def sample():
         with torch.no_grad():
             gen = generate()
-        return torch.stack([shown, target, gen.to(target.dtype)], dim=1).flatten(0, 1)
+        cols = [*before, gen.to(before[0].dtype), *after]
+        return torch.stack(cols, dim=1).flatten(0, 1)
     return sample
 
 

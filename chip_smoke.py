@@ -5,7 +5,9 @@
 Phases, in order; any failure ends the run with a nonzero exit code:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
      set TF32 off for matmuls and convolutions (f32 comparisons stay f32)
-     and let cuDNN autotune its convolution algorithms;
+     and let cuDNN autotune its convolution algorithms (the main path's
+     among the first 3 of its heuristics' candidates for each
+     convolution, MAIN_PATH_BENCHMARK_LIMIT; the rest among PyTorch's 10);
   2. build the hand-written kernels from `animeface_tpu_torch/csrc/`;
   3. hold each kernel against its plain PyTorch version at its main path's
      shapes (f32, batch 32): the two-pass warp pair at 256px, the line-pass
@@ -124,11 +126,12 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      0 to 1 in each transition, finite losses, the grids at each
      snapshot's resolution, G_<step>.pt with its sidecar G_<step>.json,
      final.png and G_final.pt, no kernel launched, the seconds of each
-     resolution; for PGGAN, a kill and resume on the card: PGGAN to 16px in
+     resolution; for PGGAN, a kill and resume on the card: PGGAN to 8px in
      f32 in subprocesses with deterministic algorithms, one run
-     uninterrupted and one SIGKILLed after ckpt-18 (the 8 -> 16px growth
-     boundary) and, resumed, after ckpt-21 (inside the 16px G_transition),
-     resumed to the end: G_final.pt bitwise equal (or within 1e-4 of each
+     uninterrupted and one SIGKILLed after ckpt-2 (the 4 -> 8px growth
+     boundary) and, resumed, after ckpt-3 (inside the 8px G_transition),
+     each resumed to the end by a process started beside the killed one:
+     G_final.pt bitwise equal (or within 1e-4 of each
      tensor's scale where a warning names an op without a deterministic
      kernel); each recipe's wall time;
  16. the BigGAN family at the CLI's defaults (128px, channels 64, z 120,
@@ -178,7 +181,21 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      of the pair nudged; SRGAN's and ESRGAN's spectral norms' u after the
      step held; conv biases that an instance norm follows structurally
      zero); each part's seconds and the phases' total;
- 19. the metrics, on the snapshots that phase 12 left in place: the
+ 19. the line-art recipes of the xdog task, NAFNet, Restormer, pix2pixHD
+     and CycleGAN, at their CLI's defaults (128px, full width, batch 32,
+     bf16, no cuDNN autotuning as their CLIs): the direct steps of
+     `build_training` on one paired batch (pix2pixHD's local fine step;
+     the models' forward FLOP, 2 warm-up and 5 timed steps: ms a step,
+     images/s, TFLOP/s, peak memory, no hand-written kernel launched, one
+     profiled step); the CLI a stage shallower at 64px, 5 steps saving at
+     4 and a resume to 6 (pix2pixHD: first its global invocation at 32px,
+     which writes global_final.pt, then the local one from it, 64 images
+     and fine_from 1, so that steps 0-1 train the local G alone and 2-5
+     everything, each step's variant recorded); the f32 step on the card
+     against the CPU from the CLI run's last checkpoint (pix2pixHD's fine
+     step, CycleGAN's with spectral norm and S over both Ds' logits);
+     each part's seconds and the phases' total;
+ 20. the metrics, on the snapshots that phase 12 left in place: the
      InceptionV3 extractor at full size on random weights that do not
      collapse (He-normal kernels, BN variances in [0.5, 1.5], from a fixed
      seed, written to a temporary .npz in the converter's layout and read
@@ -200,7 +217,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      fakes, ms a forward plus backward; at batch 2 pooled to 128px the
      card against the CPU with the step gate's tolerances); no hand-written
      kernel launched; its wall time;
- 20. print one JSON line of the kernels, the card line, and last
+ 21. print one JSON line of the kernels, the card line, and last
      {"ok": true, "device": {...}}.
 The card-vs-CPU step gate (`check_step_against_cpu`) reruns the step on
 the CPU with the inputs moved by 1e-6 three times (`nudged_tolerances`):
@@ -235,6 +252,12 @@ ADA_STEPS = 16                 # one R1 cycle: gp_every = 16
 TOL = 1e-4                     # kernel vs plain, abs, f32 unit-scale images
 GATE_WORKERS = 4               # the step gate's CPU runs at a time, beside its card run
 BF16_RTOL = 1.6e-2             # kernel vs plain in bf16, of the output's scale
+#: the algorithms cuDNN's autotuning times for each new convolution of the
+#: main path (PyTorch's default, 10, everywhere else, the f32 step gates'
+#: card runs among them): on an H100 its warm-up took 31.19 s with 3
+#: against 45.95-66.28 s with 10 and its cycle the same (1 made the penalty
+#: steps 40% slower); `time_chip_smoke_parts.py limit-paths`, `limit-main`
+MAIN_PATH_BENCHMARK_LIMIT = 3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 D_K, G_K = 16, 8
@@ -1443,7 +1466,7 @@ def _print_loss_gate(label, want, tols, ratios):
 
 def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev, batch=2,
                            rtol=1e-3, nudge=1e-6, max_nudged=0.1, nudges=3, zero_grad=None,
-                           nearest=False, make_real=None, d_logits=None):
+                           nearest=False, make_real=None, d_logits=None, hooked=None):
     '''One training step at full width in f32 on the card (TF32 off) and on
     the CPU, from `run`'s weights and buffers (its G, D and G_ema: modules
     or state dicts) and the same draws (made on the CPU). Plain SGD on both
@@ -1472,7 +1495,8 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
     (`make_real(args, device, seed)` makes it; every image is nudged) and
     its draws may have no z; `d_logits(output)` picks the tensors of D's
     output whose largest |value| is the losses' summand scale (default:
-    the output's tensors, or those of its tuple or list).
+    the output's tensors, or those of its tuple or list), and
+    `hooked(D)` the modules whose outputs those are (default D itself).
     Prints S for each nudge, each loss's sensitivity
     and error over its tolerance, and each gate's worst error over its
     tolerance; returns those ratios.'''
@@ -1511,11 +1535,12 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
             if 'z' in draws:
                 draws['z'] = draws['z'] + nudge * torch.randn(draws['z'].shape, generator=g)
         sizes = []
-        hook = D.register_forward_hook(lambda m, i, o: sizes.append(max(
+        hooks = [m.register_forward_hook(lambda m, i, o: sizes.append(max(
             (float(t.detach().abs().max()) for t in d_logits(o) if isinstance(t, torch.Tensor)),
-            default=0.0)))
+            default=0.0))) for m in (hooked(D) if hooked else (D,))]
         metrics = step(state, _to(images, device), _to(draws, device))
-        hook.remove()
+        for hook in hooks:
+            hook.remove()
         if isinstance(metrics, tuple):
             metrics = metrics[0]
         got = {f'loss {k}': v.detach().cpu() for k, v in metrics.items()}
@@ -1755,12 +1780,20 @@ CLI_RUNS = {
     'pix2pix': ((), 5, 4, 6, (1, 3)),
     'SRGAN': ((), 5, 4, 6, (1, 3)),
     'ESRGAN': ((), 5, 4, 6, (1, 3)),
+    'NAFNet': (('--image-size', '64'), 5, 4, 6, (1, 3)),
+    'Restormer': (('--image-size', '64'), 5, 4, 6, (1, 3)),
+    # 64 images at batch 32: two steps an epoch; the local run's steps 0-1
+    # train the local G alone (fine_from 1), steps 2 on everything
+    'pix2pixHD': (('--image-size', '64', '--num-images', '64', '--fine-from', '1'), 5, 4, 6,
+                  (1, 3)),
+    'CycleGAN': (('--image-size', '64'), 5, 4, 6, (1, 3)),
 }
 #: the sample grids of the recipes that set them: (images, images a row)
 CLI_GRIDS = {'DCGAN': (16, 4), 'GAN': (16, 4), 'WGAN': (25, 5), 'WGAN_gp': (25, 5),
              'CIPS': (16, 4), 'FastGAN': (16, 4), 'BigGAN': (16, 4), 'SEBigGAN': (16, 4),
              'TransGAN': (16, 4), 'HiT': (16, 4), 'ConvNeXt': (16, 4), 'VAN': (16, 4),
-             'pix2pix': (12, 6), 'SRGAN': (18, 9), 'ESRGAN': (18, 9)}
+             'pix2pix': (12, 6), 'SRGAN': (18, 9), 'ESRGAN': (18, 9), 'NAFNet': (12, 6),
+             'Restormer': (12, 6), 'pix2pixHD': (12, 6), 'CycleGAN': (12, 4)}
 
 
 def _variant_recorder(module, seen):
@@ -1808,7 +1841,7 @@ def _cli_module(recipe):
     import importlib
     if recipe in SIMPLE_GANS:
         return importlib.import_module('animeface_tpu_torch.nnutils.simple_gan')
-    if recipe in PAIRED:
+    if recipe in PAIRED + LINE_ART:
         return importlib.import_module('animeface_tpu_torch.nnutils.paired')
     shares = {'ADA': 'StyleGAN3', 'CIPS': 'StyleGAN3', 'GAN': 'DCGAN', 'WGAN': 'DCGAN',
               'WGAN_gp': 'DCGAN', 'SEBigGAN': 'BigGAN'}
@@ -2264,13 +2297,19 @@ PROGRESSIVE_CLI = ('--image-size', str(PROGRESSIVE_CLI_IMAGE), '--num-images', '
                    '30')
 PROGRESSIVE_PHASES = (['D_stablization']
                       + ['G_transition', 'G_stablization', 'D_transition', 'D_stablization'] * 3)
-KILL_IMAGE, KILL_AT = 16, (18, 21)   # the 8 -> 16px growth boundary, then inside its G_transition
-KILL_SAVE = 7                  # no snapshot at step 18: ckpt-18 is the boundary's alone
+KILL_IMAGE, KILL_AT = 8, (2, 3)      # the 4 -> 8px growth boundary, then inside its G_transition
+KILL_SAVE = 3                  # no snapshot at step 2: ckpt-2 is the boundary's alone
 KILL_RUNNER = """
-import json, os, runpy, signal, sys
+import importlib, json, os, runpy, signal, sys
 import torch
 torch.use_deterministic_algorithms(True, warn_only=True)
-kill_at = int(sys.argv[2])
+argv, kill_at = json.loads(sys.argv[1]), int(sys.argv[2])
+if sys.argv[3:] == ['wait']:
+    # a resume started beside the run it resumes: its imports and the
+    # card's context made, it waits for the line that says the run is dead
+    importlib.import_module('animeface_tpu_torch.implementations.' + argv[0])
+    torch.zeros(1, device='cuda' if torch.cuda.is_available() else 'cpu')
+    sys.stdin.readline()
 if kill_at:
     from animeface_tpu_torch import checkpoint
     save = checkpoint.Checkpointer.save
@@ -2281,7 +2320,7 @@ if kill_at:
             os.kill(os.getpid(), signal.SIGKILL)
         return path
     checkpoint.Checkpointer.save = save_then_kill
-sys.argv = ['animeface_tpu_torch', *json.loads(sys.argv[1])]
+sys.argv = ['animeface_tpu_torch', *argv]
 runpy.run_module('animeface_tpu_torch', run_name='__main__', alter_sys=True)
 """
 
@@ -2472,7 +2511,9 @@ def run_progressive_kill_resume(card, image_size=KILL_IMAGE, kills=KILL_AT, save
     CUBLAS_WORKSPACE_CONFIG=:4096:8, cuDNN autotuning off), in lanes side
     by side: one run uninterrupted and, for each checkpoint of `kills`, one
     killed with SIGKILL right after publishing it and resumed from its
-    checkpoint directory to the end. The first kill must land on a growth
+    checkpoint directory to the end (the resume's process started beside
+    the killed run, its imports and its context on the card made while
+    that run trains). The first kill must land on a growth
     boundary (`opt_fresh`), the second inside a G_transition epoch. Each
     killed lane's G_final.pt must equal the uninterrupted run's bitwise,
     or, where a warning names an op without a deterministic kernel, within
@@ -2490,14 +2531,34 @@ def run_progressive_kill_resume(card, image_size=KILL_IMAGE, kills=KILL_AT, save
                         PYTHONUNBUFFERED='1',
                         ANIMEFACE_IMPLEMENTATIONS_DIR=os.path.join(tmp, name))
             ckpt = os.path.join(tmp, name, 'PGGAN', 'result', 'checkpoint')
-            runs, meta = [], None
-            for extra, kill in (([], kill_at), (['--resume', ckpt], 0))[:2 if kill_at else 1]:
-                runs.append(subprocess.run(
-                    [sys.executable, '-c', KILL_RUNNER, json.dumps(argv + extra), str(kill)],
-                    env=env_, capture_output=True, text=True, timeout=600))
-                if kill and runs[-1].returncode == -signal.SIGKILL:
-                    with open(os.path.join(ckpt, f'ckpt-{kill}', 'meta.json')) as f:
-                        meta = json.load(f)
+            meta = None
+
+            def start(extra, kill, *wait):
+                return subprocess.Popen(
+                    [sys.executable, '-c', KILL_RUNNER, json.dumps(argv + extra), str(kill),
+                     *wait], env=env_, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+            # a killed lane's resume starts beside the run it resumes and
+            # waits, imported and on the card, until that run is dead
+            procs = [start([], kill_at)] + ([start(['--resume', ckpt], 0, 'wait')]
+                                            if kill_at else [])
+            runs = []
+            try:
+                for i, proc in enumerate(procs):
+                    if i:
+                        proc.stdin.write('run\n')
+                        proc.stdin.flush()
+                    out, err = proc.communicate(timeout=600)
+                    runs.append(SimpleNamespace(returncode=proc.returncode, stdout=out,
+                                                stderr=err))
+                    if kill_at and not i and proc.returncode == -signal.SIGKILL:
+                        with open(os.path.join(ckpt, f'ckpt-{kill_at}', 'meta.json')) as f:
+                            meta = json.load(f)
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
             want = [0] if not kill_at else [-signal.SIGKILL, 0]
             for run, code in zip(runs, want):
                 if run.returncode != code:
@@ -3128,11 +3189,11 @@ def run_data_path(dev, card):
 
 def paired_batch(args, dev, seed=1):
     """One batch of the recipe's task at `args`' sizes on `dev`, uniform in
-    [-1, 1] from `seed`: (target RGB, source line art) for pix2pix, (LR,
-    HR) for SRGAN and ESRGAN."""
+    [-1, 1] from `seed`: (target RGB, source line art) for pix2pix and the
+    line-art recipes (xdog), (LR, HR) for SRGAN and ESRGAN."""
     g = torch.Generator(device=dev).manual_seed(seed)
     size = args.image_size
-    shapes = (((3, size), (1, size)) if args.name == 'pix2pix' else
+    shapes = (((3, size), (1, size)) if args.name in ('pix2pix', *LINE_ART) else
               ((args.image_channels, int(size // args.scale)), (args.image_channels, size)))
     return tuple(torch.rand((args.batch_size, c, n, n), generator=g, device=dev) * 2 - 1
                  for c, n in shapes)
@@ -3223,6 +3284,204 @@ def run_paired_phase(recipe, dev, card):
     torch.cuda.empty_cache()
     t = time.perf_counter()
     check_paired_step_against_cpu(recipe, out, dev)
+    parts['f32 gate'] = time.perf_counter() - t
+    print(f'phase {recipe} parts: ' + ', '.join(f'{k} {v:.1f} s' for k, v in parts.items()))
+
+
+# ------------------------------------------------------ the line-art recipes
+
+#: the line-art recipes of the xdog task on the paired runtime
+#: (`nnutils/paired.py`): NAFNet and Restormer on NAFNet's restoration
+#: step, pix2pixHD in two invocations, CycleGAN with spectral norm
+LINE_ART = ('NAFNet', 'Restormer', 'pix2pixHD', 'CycleGAN')
+LINE_ART_DIRECT = (2, 5)         # direct steps at the CLI's 128px default: warm-up, timed
+LINE_ART_IMAGE = 128
+#: forwards' worth of one G and one D in a step, a backward as two. The
+#: restoration step: G 1 (the D phase, no grad) + 3; D 2 + 4 in the D
+#: phase, 1 + 1 in the G phase (its parameters frozen: the input gradient
+#: alone). pix2pixHD's fine step: D once more in the G phase (the real
+#: pair's features, no grad). CycleGAN, for each G: 1 in the D phase, 3 for
+#: its fake and 3 for its cycle reconstruction; each D as the restoration D
+LINE_ART_FORWARDS = {'NAFNet': (4, 8), 'Restormer': (4, 8), 'pix2pixHD': (4, 9),
+                     'CycleGAN': (7, 8)}
+
+
+def line_art_flop(run, args):
+    """One step's FLOP at `args`' batch from G's and D's forwards on one
+    sample (`forward_flop`, no buffer moves; CycleGAN's both Gs and both
+    Ds) and LINE_ART_FORWARDS; prints them."""
+    dev = next(run.G.parameters()).device
+    image, line = paired_batch(SimpleNamespace(**dict(vars(args), batch_size=1)), dev)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False       # no autotuning of these shapes for a count
+    try:
+        if args.name == 'CycleGAN':
+            g = forward_flop(lambda: (run.G['G_ab'](image, train=False),
+                                      run.G['G_ba'](line, train=False)))
+            d = forward_flop(lambda: (run.D['D_a'](image, train=False),
+                                      run.D['D_b'](line, train=False)))
+        elif args.name == 'pix2pixHD':
+            g = forward_flop(run.G, line)
+            d = forward_flop(run.D, torch.cat([line, image], dim=1))
+        else:
+            g = forward_flop(run.G, line)
+            d = forward_flop(lambda x: run.D(x, train=False), torch.cat([image, line], dim=1))
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    fg, fd = LINE_ART_FORWARDS[args.name]
+    flop = args.batch_size * (fg * g + fd * d)
+    params = sum(p.numel() for p in run.G.parameters())
+    print(f'{args.name}: G forward {g / 2e9:.2f} GMAC, D forward {d / 2e9:.2f} GMAC a sample'
+          + (' (both Gs, both Ds)' if args.name == 'CycleGAN' else '')
+          + f'; G {params / 1e6:.1f}M parameters; a step {flop / 1e12:.3f} TFLOP at batch '
+          f'{args.batch_size}')
+    return flop
+
+
+def check_line_art_step_against_cpu(recipe, out, dev):
+    """The f32 step on the card against the CPU at batch 2
+    (`check_step_against_cpu`) from the weights and buffers of the CLI
+    run's last checkpoint under `out`, on a paired batch (`paired_batch`,
+    every image nudged): NAFNet's and Restormer's restoration step,
+    pix2pixHD's local fine step (everything trained; the global G's image
+    head, which the local image never reads, has a zero gradient), CycleGAN's
+    step with spectral norm on (S over both Ds' logits); conv biases that
+    an instance norm, a group norm or a train-mode BatchNorm follows are
+    structurally zero (ZERO_GRAD)."""
+    from animeface_tpu_torch.implementations.NAFNet import utils as nafnet
+    from animeface_tpu_torch.nnutils.loss import LSGANLoss
+
+    state, ran = _last_checkpoint(out)
+    module = _recipe_module(recipe)
+    args = module.default_args(image_size=int(ran['image_size']))
+    d_logits = hooked = None
+    if recipe in ('NAFNet', 'Restormer'):
+        def make_step(G, D, G_ema, g_opt, d_opt):
+            return nafnet.build_restoration_step(G, D, g_opt, d_opt, LSGANLoss(),
+                                                 args.pixel_lambda)
+    elif recipe == 'pix2pixHD':
+        def make_step(G, D, G_ema, g_opt, d_opt):
+            return module.build_train_step(G, D, g_opt, d_opt, LSGANLoss(), args.feat_lambda,
+                                           min(args.l_d_scale, args.d_num_scale), (), False)
+
+        def d_logits(outs):
+            return [logits for logits, _ in outs]
+    else:
+        def make_step(G, D, G_ema, g_opt, d_opt):
+            return module.build_train_step(G, D, g_opt, d_opt, LSGANLoss(), args.cycle_lambda)
+
+        def hooked(D):
+            return D['D_a'], D['D_b']
+    return check_step_against_cpu(
+        f'{recipe} {args.image_size}px', lambda a, d: module.build_models(a, d), make_step,
+        lambda G, real, a: {}, args, SimpleNamespace(G=state['G'], D=state['D']), dev,
+        zero_grad=ZERO_GRAD, make_real=paired_batch, d_logits=d_logits, hooked=hooked)
+
+
+def _pix2pixhd_recorder(seen):
+    """A stand-in for pix2pixHD's `build_train_step` whose steps record
+    (step index at entry, 'global', 'pre' or 'fine') in `seen`."""
+    from animeface_tpu_torch.implementations.pix2pixHD import utils as hd
+
+    orig = hd.build_train_step
+
+    def build(G, D, g_opt, d_opt, loss, feat_lambda, d_scale, g_frozen, global_phase):
+        step = orig(G, D, g_opt, d_opt, loss, feat_lambda, d_scale, g_frozen, global_phase)
+        tag = 'global' if global_phase else ('pre' if g_frozen else 'fine')
+
+        def recorded(state, batch, draws=None):
+            seen.append((state['step'], tag))
+            return step(state, batch, draws)
+        return recorded
+    return hd, orig, build
+
+
+def run_pix2pixhd_cli(card):
+    """pix2pixHD's two invocations of one command: the first (no
+    `global_final.pt` yet) trains the global G at half the size and writes
+    the file; then `run_cli_path`'s run and resume are the second
+    invocation, the local phase from that file, crossing `fine_from`.
+    Checks the file (G and D whole, finite, the keys the models have), no
+    hand-written kernel launched, and each step's variant: every step of
+    the first invocation global, the local run's steps pre before
+    `fine_from`'s step and fine after, the resume's fine. Returns the
+    second invocation's result directory."""
+    import os
+    from animeface_tpu_torch.__main__ import main as cli_main
+    from animeface_tpu_torch.utils import add_args
+    from animeface_tpu_torch.utils.argument import get_default_parser
+
+    flags, steps, save, resume_to, _ = CLI_RUNS['pix2pixHD']
+    out = os.path.join(os.environ['ANIMEFACE_IMPLEMENTATIONS_DIR'], 'pix2pixHD', 'result')
+    seen = []
+    hd, orig, build = _pix2pixhd_recorder(seen)
+    path = os.path.join(out, hd.GLOBAL_CKPT)
+    if os.path.exists(path):
+        raise AssertionError(f'{path} exists before the first invocation')
+    hd.build_train_step = build
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        cli_main(['pix2pixHD', '--synthetic-data', *flags, '--max-iters', str(steps), '--save',
+                  str(save)])
+        wall = time.perf_counter() - t0
+        _check_no_launches('pix2pixHD global CLI')
+        first = list(seen)
+        saved = torch.load(path, map_location='cpu', weights_only=True)
+        args = add_args(get_default_parser(), hd.PIX2PIXHD_ARGS).parse_args(['pix2pixHD',
+                                                                            *flags])
+        G, D, _ = hd.build_models(args, 'cpu')
+        for name, model in (('G', G), ('D', D)):
+            if set(saved[name]) != set(model.state_dict()) or not all(
+                    bool(torch.isfinite(v).all()) for v in saved[name].values()):
+                raise AssertionError(f'pix2pixHD {hd.GLOBAL_CKPT}: {name} is not the model\'s '
+                                     'state or not finite')
+        seen.clear()
+        out_local, _ = run_cli_path('pix2pixHD', card)
+    finally:
+        hd.build_train_step = orig
+    fine_at = int(flags[flags.index('--fine-from') + 1]) * int(
+        flags[flags.index('--num-images') + 1]) // args.batch_size
+    want = ([(i, 'global') for i in range(steps)],
+            [(i, 'pre' if i < fine_at else 'fine') for i in range(resume_to)])
+    if (first, seen) != want:
+        raise AssertionError(f'pix2pixHD CLI steps {first} then {seen}, want {want}')
+    print(f'pix2pixHD CLI: the global invocation {wall:.2f} s ({steps} steps at '
+          f'{args.image_size // 2}px, {hd.GLOBAL_CKPT} with G and D whole), then the local run '
+          f'and its resume: steps {seen} (fine from step {fine_at}) on {card}')
+    return out_local
+
+
+def run_line_art_phase(recipe, dev, card):
+    """One line-art recipe: the direct steps of `build_training` at the CLI's
+    128px defaults (full width, batch 32, bf16, no cuDNN autotuning as the
+    recipe's CLI; pix2pixHD's local fine step) on one batch (`LINE_ART_DIRECT`; the models' FLOP, ms a step, images/s,
+    TFLOP/s, peak memory, no hand-written kernel launched, one profiled
+    step), the CLI with its resume at 64px (`run_cli_path`; pix2pixHD both
+    invocations, `run_pix2pixhd_cli`), the f32 step on the card against the
+    CPU. Prints each part's seconds."""
+    parts = {}
+    warmup, steps = LINE_ART_DIRECT
+    overrides = dict(image_size=LINE_ART_IMAGE, **({'fine_from': 0} if recipe == 'pix2pixHD'
+                                                   else {}))
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = _recipe_module(recipe).AUTOTUNE     # as the CLI runs
+    try:
+        run_direct_steps(recipe, dev, card, steps, warmup, overrides=overrides,
+                         flop=line_art_flop, profile=True, make_real=paired_batch)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    parts['direct'] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out = (run_pix2pixhd_cli(card) if recipe == 'pix2pixHD'
+           else run_cli_path(recipe, card)[0])        # at 64px: no direct images/s beside it
+    parts['CLI'] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    check_line_art_step_against_cpu(recipe, out, dev)
     parts['f32 gate'] = time.perf_counter() - t
     print(f'phase {recipe} parts: ' + ', '.join(f'{k} {v:.1f} s' for k, v in parts.items()))
 
@@ -3329,7 +3588,12 @@ def run_all() -> int:
     check_warp_against_dense(images, G_inv)
     del images, G_inv
 
-    kernels[0]['launches'], kernels[1]['launches'] = run_main_path(dev, card)
+    limit = torch.backends.cudnn.benchmark_limit
+    torch.backends.cudnn.benchmark_limit = MAIN_PATH_BENCHMARK_LIMIT
+    try:
+        kernels[0]['launches'], kernels[1]['launches'] = run_main_path(dev, card)
+    finally:
+        torch.backends.cudnn.benchmark_limit = limit
     torch.cuda.empty_cache()
     (line_kernels[0]['launches'], line_kernels[1]['launches']), ada_ips = \
         run_ada_path(dev, card)
@@ -3419,6 +3683,16 @@ def run_all() -> int:
         run_paired_phase(recipe, dev, card)
         print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
     print(f'phases data and paired recipes: {time.perf_counter() - t_paired:.1f} s')
+
+    # the line-art recipes of the xdog task at their CLI's defaults: direct
+    # steps at 128px, the CLI with its resume at 64px (pix2pixHD's two
+    # invocations), the gate
+    t_line_art = time.perf_counter()
+    for recipe in LINE_ART:
+        t = time.perf_counter()
+        run_line_art_phase(recipe, dev, card)
+        print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
+    print(f'phases line-art recipes: {time.perf_counter() - t_line_art:.1f} s')
 
     # the metrics, on the StyleGAN2, ADA and PGGAN CLI runs' snapshots
     torch.cuda.empty_cache()

@@ -22,7 +22,7 @@ mods = [m.name for m in pkgutil.walk_packages(animeface_tpu_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 import chip_smoke, time_line_kernels, time_flrelu_kernel, time_bias_act_kernel
-import time_progressive_blur
+import time_progressive_blur, time_chip_smoke_parts
 print(' '.join(mods))
 '''
 
@@ -108,6 +108,14 @@ REQUIRED = (
     'animeface_tpu_torch.implementations.SRGAN.utils',
     'animeface_tpu_torch.implementations.ESRGAN.model',
     'animeface_tpu_torch.implementations.ESRGAN.utils',
+    'animeface_tpu_torch.implementations.NAFNet.model',
+    'animeface_tpu_torch.implementations.NAFNet.utils',
+    'animeface_tpu_torch.implementations.Restormer.model',
+    'animeface_tpu_torch.implementations.Restormer.utils',
+    'animeface_tpu_torch.implementations.pix2pixHD.model',
+    'animeface_tpu_torch.implementations.pix2pixHD.utils',
+    'animeface_tpu_torch.implementations.CycleGAN.model',
+    'animeface_tpu_torch.implementations.CycleGAN.utils',
 )
 
 
