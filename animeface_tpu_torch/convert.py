@@ -3,8 +3,9 @@ StyleGAN3 G and D, the CIPS G, FastGAN's G and D, the G and D of DCGAN
 (also WGAN's and WGAN-gp's) and GAN, PGGAN's and StyleGAN (v1)'s G and D,
 the metrics' InceptionV3 and VGG trunks, BigGAN's (and SEBigGAN's) G and
 D, the G and D of TransGAN, HiT, ConvNeXt and VAN, those of pix2pix,
-SRGAN and ESRGAN (whose D is SRGAN's), and those of NAFNet, Restormer
-(whose D is NAFNet's), pix2pixHD and CycleGAN.
+SRGAN and ESRGAN (whose D is SRGAN's), those of NAFNet, Restormer
+(whose D is NAFNet's), pix2pixHD and CycleGAN, and normalizations' G,
+SPADE's G and E and SCFT's G and D (the Ds of the first two are SRGAN's).
 
 Input: a flax params tree (nested dicts of numpy arrays, as
 `jax.device_get(variables['params'])` gives). Output: a dict of float32
@@ -34,7 +35,9 @@ paired recipes (`convert_pix2pix_{generator,discriminator}`,
 `convert_srgan_{generator,discriminator}`, `convert_esrgan_generator`)
 and the line-art recipes (`convert_nafnet_{generator,discriminator}`,
 `convert_restormer_generator`, `convert_pix2pixhd_{generator,
-discriminator}`, `convert_cyclegan_{generator,discriminator}`) after it.
+discriminator}`, `convert_cyclegan_{generator,discriminator}`), and
+`convert_normalizations_generator`, `convert_spade_{generator,encoder}`
+and `convert_scft_{generator,discriminator}` after it.
 
 Generator:                                 port
   map/ELRDense_i                           map.layers.i
@@ -223,13 +226,18 @@ def convert_cips_generator(params, moments) -> dict:
 #   decoder_{8,16}/{UpBlock_i, SNConv_0}              decoder_{8,16}.{ups.i, out}
 
 def _sn_layer(p, s, prefix, out):
-    name = 'Conv_0' if 'Conv_0' in p else 'Dense_0'
+    _sn_named(p, s, 'Conv_0' if 'Conv_0' in p else 'Dense_0', 'SpectralNorm_0', prefix, out)
+
+
+def _sn_named(p, s, name, sn, prefix, out):
+    '''The conv or dense layer `name` of `p`, with the u of its spectral
+    norm `sn` in `s` where there is one (none with use_sn=False).'''
     k = np.asarray(p[name]['kernel'])
     out[f'{prefix}.weight'] = _t(k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T)
     if 'bias' in p[name]:
         out[f'{prefix}.bias'] = _t(p[name]['bias'])
-    if s and 'SpectralNorm_0' in s:                 # none with use_sn=False
-        out[f'{prefix}.u'] = _t(np.asarray(s['SpectralNorm_0'][f'{name}/kernel/u']).reshape(-1))
+    if s and sn in s:
+        out[f'{prefix}.u'] = _t(np.asarray(s[sn][f'{name}/kernel/u']).reshape(-1))
 
 
 def _fastgan_norm(p, s, prefix, out):
@@ -961,3 +969,148 @@ def convert_cyclegan_generator(variables, prefix='') -> dict:
 
 
 convert_cyclegan_discriminator = convert_cyclegan_generator
+
+
+# ------------------------------------------------- normalizations, SPADE and SCFT
+# Their port modules keep flax's layers in lists in creation order too:
+# normalizations' `convs`, `norms` (Normalization_i) and `adanorms`
+# (AdaptiveNormalization_i); SPADE's `blocks` (SPADEResBlock_i, each with
+# `spades` and `convs`), E's `convs` and `norms`; SCFT's `blocks`
+# (ResBlock_i), `dec` (the Generator's ConvBlock_i), the encoders' `blocks`
+# and D's `convs` and `norms`. A norm without parameters ('in', or any
+# norm without its affine terms) has no entry but BatchNorm's statistics.
+
+def _indexed_keys(tree, name):
+    '''(index, key) of the children `name_i` of `tree`, in index order.'''
+    keys = [k for k in tree if k.startswith(name + '_') and k.rsplit('_', 1)[1].isdigit()]
+    return sorted((int(k.rsplit('_', 1)[1]), k) for k in keys)
+
+
+def _running(s, prefix, out):
+    out[f'{prefix}.running_mean'] = _t(s['mean'])
+    out[f'{prefix}.running_var'] = _t(s['var'])
+
+
+def _normalization(p, s, prefix, out):
+    '''normalizations' `Normalization` of any kind.'''
+    _norm(p.get('BatchNorm_0'), f'{prefix}.bn', out)
+    if 'BatchNorm_0' in s:
+        _running(s['BatchNorm_0'], f'{prefix}.bn', out)
+    if 'rho' in p:
+        out[f'{prefix}.rho'] = _t(p['rho'])
+    if 'Conv_0' in p:
+        _conv(p['Conv_0'], f'{prefix}.conv', out)
+    if 'gamma' in p:
+        out[f'{prefix}.gamma'] = _t(np.asarray(p['gamma']).reshape(-1))
+        out[f'{prefix}.beta'] = _t(np.asarray(p['beta']).reshape(-1))
+
+
+def convert_normalizations_generator(variables) -> dict:
+    '''normalizations' G from flax variables ({'params', 'batch_stats'}:
+    BatchNorm's statistics with 'bn'). The style Dense reads the map
+    flattened in H, W, C order on both sides, so its kernel only
+    transposes.'''
+    p, s = variables['params'], variables.get('batch_stats', {})
+    out = {}
+    for i, key in _indexed_keys(p, 'Conv'):
+        _conv(p[key], f'convs.{i}', out)
+    for i, key in _indexed_keys(p, 'Normalization'):
+        _normalization(p[key], s.get(key, {}), f'norms.{i}', out)
+    for i, key in _indexed_keys(p, 'AdaptiveNormalization'):
+        _normalization(p[key].get('Normalization_0', {}),
+                       s.get(key, {}).get('Normalization_0', {}), f'adanorms.{i}.norm', out)
+        _dense(p[key]['Dense_0'], f'adanorms.{i}.dense', out)
+        out[f'adanorms.{i}.affine_bias'] = _t(p[key]['affine_bias'])
+    _dense(p['Dense_0'], 'dense', out)
+    return out
+
+
+def _stats_of(s, prefix, out):
+    '''BatchNorm's statistics of a norm without affine terms, if any.'''
+    if 'BatchNorm_0' in s:
+        _running(s['BatchNorm_0'], prefix, out)
+
+
+def convert_spade_generator(variables, prefix='') -> dict:
+    '''SPADE's G from flax variables ({'params', 'batch_stats'}: u, the
+    SPADE norms' statistics); `prefix` names it in the recipe's module dict
+    ('G.').'''
+    p, s = variables['params'], variables.get('batch_stats', {})
+    out = {}
+    _dense(p['Dense_0'], f'{prefix}dense', out)
+    for i, key in _indexed_keys(p, 'SPADEResBlock'):
+        blk, bs = p[key], s.get(key, {})
+        for j, sk in _indexed_keys(blk, 'SPADE'):
+            sp, ss = blk[sk], bs.get(sk, {})
+            _stats_of(ss, f'{prefix}blocks.{i}.spades.{j}.norm.norm', out)
+            for k, ck in _indexed_keys(sp, 'SNConv'):
+                _sn_layer(sp[ck], ss.get(ck, {}), f'{prefix}blocks.{i}.spades.{j}.convs.{k}', out)
+        for j, ck in _indexed_keys(blk, 'SNConv'):
+            _sn_layer(blk[ck], bs.get(ck, {}), f'{prefix}blocks.{i}.convs.{j}', out)
+    _sn_layer(p['SNConv_0'], s.get('SNConv_0', {}), f'{prefix}out', out)
+    return out
+
+
+def convert_spade_encoder(variables, prefix='') -> dict:
+    '''SPADE's E from flax variables; `prefix` names it ('E.').'''
+    p, s = variables['params'], variables.get('batch_stats', {})
+    out = {}
+    for i, key in _indexed_keys(p, 'SNConv'):
+        _sn_layer(p[key], s.get(key, {}), f'{prefix}convs.{i}', out)
+    for i, key in _indexed_keys(s, 'BatchNorm'):
+        _running(s[key], f'{prefix}norms.{i}.norm', out)
+    _dense(p['Dense_0'], f'{prefix}mu', out)
+    _dense(p['Dense_1'], f'{prefix}logvar', out)
+    return out
+
+
+def _scft_norm(p, s, prefix, out):
+    '''`get_normalization`'s parameters (and BatchNorm's statistics).'''
+    for kind in ('BatchNorm_0', 'LayerNorm_0', 'GroupNorm_0'):
+        if kind in p:
+            _norm(p[kind], prefix, out)
+        if kind in s:
+            _running(s[kind], prefix, out)
+
+
+def _scft_block(p, s, prefix, out):
+    '''A ConvBlock: its (spectral-normalized) conv and its norm.'''
+    _sn_layer(p, s, f'{prefix}.conv', out)
+    _scft_norm(p, s, f'{prefix}.norm', out)
+
+
+def convert_scft_generator(variables) -> dict:
+    '''SCFT's G from flax variables ({'params', 'batch_stats'}: u).'''
+    p, s = variables['params'], variables.get('batch_stats', {})
+    out = {}
+    for enc in ('ref_encoder', 'sketch_encoder'):
+        for i, key in _indexed_keys(p[enc], 'ConvBlock'):
+            _scft_block(p[enc][key], s.get(enc, {}).get(key, {}), f'{enc}.blocks.{i}', out)
+    ps, ss = p['SCFT_0'], s.get('SCFT_0', {})
+    _sn_named(ps, ss, 'Dense_0', 'SpectralNorm_0', 'scft.kv', out)
+    _sn_named(ps, ss, 'Dense_1', 'SpectralNorm_1', 'scft.q', out)
+    for i, key in _indexed_keys(p, 'ResBlock'):
+        rp, rs = p[key], s.get(key, {})
+        for j, ck in _indexed_keys(rp, 'ConvBlock'):
+            _scft_block(rp[ck], rs.get(ck, {}), f'blocks.{i}.blocks.{j}', out)
+        _sn_layer(rp, rs, f'blocks.{i}.conv', out)
+        _scft_norm(rp, rs, f'blocks.{i}.norm', out)
+    for i, key in _indexed_keys(p, 'ConvBlock'):
+        _scft_block(p[key], s.get(key, {}), f'dec.{i}', out)
+    _sn_layer(p, s, 'out', out)
+    return out
+
+
+def convert_scft_discriminator(variables) -> dict:
+    '''SCFT's D from flax variables: Conv_k with SpectralNorm_k -> convs.k,
+    the norms in order -> norms.j.'''
+    p, s = variables['params'], variables.get('batch_stats', {})
+    out = {}
+    for k, key in _indexed_keys(p, 'Conv'):
+        _sn_named(p, s, key, f'SpectralNorm_{k}', f'convs.{k}', out)
+    for kind in ('BatchNorm', 'LayerNorm', 'GroupNorm'):
+        for j, key in _indexed_keys(p, kind):
+            _norm(p[key], f'norms.{j}', out)
+            if key in s:
+                _running(s[key], f'norms.{j}', out)
+    return out

@@ -69,13 +69,17 @@ def instance_norm(x, eps: float = 1e-6, dtype=torch.float32):
 class BatchNorm(nn.Module):
     '''flax `nn.BatchNorm(momentum=0.9)` over the features of axis 1, with a
     scale (`weight`) and a `bias`; `scale_init(shape)` gives the initial
-    scale (ones by default).'''
+    scale (ones by default). With `affine=False` (flax's `use_scale=False,
+    use_bias=False`) it has neither.'''
 
-    def __init__(self, features, eps: float = 1e-5, dtype=torch.float32, scale_init=None):
+    def __init__(self, features, eps: float = 1e-5, dtype=torch.float32, scale_init=None,
+                 affine: bool = True):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(features) if scale_init is None
-                                   else scale_init((features,)))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.weight = self.bias = None
+        if affine:
+            self.weight = nn.Parameter(torch.ones(features) if scale_init is None
+                                       else scale_init((features,)))
+            self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('running_mean', torch.zeros(features))
         self.register_buffer('running_var', torch.ones(features))
         self.eps, self.dtype = eps, dtype

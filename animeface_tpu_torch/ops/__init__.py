@@ -7,3 +7,4 @@ from animeface_tpu_torch.ops.upfirdn2d import (  # noqa: F401
 from animeface_tpu_torch.ops.bias_act import activation_funcs, bias_act  # noqa: F401
 from animeface_tpu_torch.ops.conv2d_resample import conv2d_resample  # noqa: F401
 from animeface_tpu_torch.ops.filtered_lrelu import filtered_lrelu  # noqa: F401
+from animeface_tpu_torch.ops.grid_sample import grid_sample  # noqa: F401

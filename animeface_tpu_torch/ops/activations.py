@@ -16,6 +16,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function_unary
 
 
 class Activation(NamedTuple):
@@ -39,7 +40,11 @@ class _LeakyReLU(torch.autograd.Function):
 
 
 def leaky_relu(x, alpha: float = 0.2):
-    '''`F.leaky_relu`'s values with `jax.nn.leaky_relu`'s gradient (1 at 0).'''
+    '''`F.leaky_relu`'s values with `jax.nn.leaky_relu`'s gradient (1 at 0).
+    A torch function of its own, so that a `TorchFunctionMode` sees it
+    (`utils/branches.py`).'''
+    if has_torch_function_unary(x):
+        return handle_torch_function(leaky_relu, (x,), x, alpha)
     return _LeakyReLU.apply(x, alpha)
 
 

@@ -5,9 +5,8 @@
 Phases, in order; any failure ends the run with a nonzero exit code:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
      set TF32 off for matmuls and convolutions (f32 comparisons stay f32)
-     and let cuDNN autotune its convolution algorithms (the main path's
-     among the first 3 of its heuristics' candidates for each
-     convolution, MAIN_PATH_BENCHMARK_LIMIT; the rest among PyTorch's 10);
+     and let cuDNN autotune its convolution algorithms, among the first 3
+     of its heuristics' candidates for each convolution (BENCHMARK_LIMIT);
   2. build the hand-written kernels from `animeface_tpu_torch/csrc/`;
   3. hold each kernel against its plain PyTorch version at its main path's
      shapes (f32, batch 32): the two-pass warp pair at 256px, the line-pass
@@ -107,8 +106,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      `build_training` on one batch, the direct images/s its CLI's stand
      beside (CIPS's and FastGAN's are phases 9 and 10); after DCGAN's and
      WGAN-gp's runs, the f32 step (WGAN-gp's full step, double backward
-     included) on the card against the CPU (WGAN-gp's against the nearest
-     of the CPU run and 64 nudged reruns: its gradients are multimodal);
+     included) on the card against the CPU;
      each phase's wall time and the run's total;
  15. the progressive recipes, PGGAN then StyleGAN (v1), at the modules'
      widths (up to 512) and --image-size 128 (max_depth 5; latent 100 and
@@ -181,20 +179,22 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      of the pair nudged; SRGAN's and ESRGAN's spectral norms' u after the
      step held; conv biases that an instance norm follows structurally
      zero); each part's seconds and the phases' total;
- 19. the line-art recipes of the xdog task, NAFNet, Restormer, pix2pixHD
-     and CycleGAN, at their CLI's defaults (128px, full width, batch 32,
-     bf16, no cuDNN autotuning as their CLIs): the direct steps of
-     `build_training` on one paired batch (pix2pixHD's local fine step;
-     the models' forward FLOP, 2 warm-up and 5 timed steps: ms a step,
-     images/s, TFLOP/s, peak memory, no hand-written kernel launched, one
-     profiled step); the CLI a stage shallower at 64px, 5 steps saving at
-     4 and a resume to 6 (pix2pixHD: first its global invocation at 32px,
+ 19. the line-art recipes of the xdog task, NAFNet, Restormer, pix2pixHD,
+     CycleGAN, normalizations, SPADE and SCFT, at their CLI's defaults
+     (128px, full width, batch 32, bf16, no cuDNN autotuning as their
+     CLIs): the direct steps of `build_training` on one paired batch
+     (pix2pixHD's local fine step; the models' and VGG16's forward FLOP, 2
+     warm-up and 5 timed steps: ms a step, images/s, TFLOP/s, peak memory,
+     no hand-written kernel launched, one profiled step); the CLI a stage
+     shallower at 64px (SPADE's and SCFT's at 128px, where their Ds work),
+     5 steps saving at 4 and a resume to 6 (pix2pixHD: first its global invocation at 32px,
      which writes global_final.pt, then the local one from it, 64 images
      and fine_from 1, so that steps 0-1 train the local G alone and 2-5
      everything, each step's variant recorded); the f32 step on the card
      against the CPU from the CLI run's last checkpoint (pix2pixHD's fine
-     step, CycleGAN's with spectral norm and S over both Ds' logits);
-     each part's seconds and the phases' total;
+     step, CycleGAN's with spectral norm and S over both Ds' logits,
+     SPADE's with its encoder's noise the draw z, SCFT's with the TPS
+     offsets); each part's seconds and the phases' total;
  20. the metrics, on the snapshots that phase 12 left in place: the
      InceptionV3 extractor at full size on random weights that do not
      collapse (He-normal kernels, BN variances in [0.5, 1.5], from a fixed
@@ -219,26 +219,31 @@ Phases, in order; any failure ends the run with a nonzero exit code:
      kernel launched; its wall time;
  21. print one JSON line of the kernels, the card line, and last
      {"ok": true, "device": {...}}.
-The card-vs-CPU step gate (`check_step_against_cpu`) reruns the step on
-the CPU with the inputs moved by 1e-6 three times (`nudged_tolerances`):
-S, the gradients' largest relative L2 move, widens the gradients'
-tolerance to 1e-3 + 2 S of their norm, and each loss's own largest move d
-widens its tolerance to 1e-3 of its value + 2 d (both capped at 0.1 of the
-gradient's norm and of the loss's summands). Where the gradients are
-multimodal (WGAN-gp), the card must instead lie within 1e-3 + 2 S_small
-of the nearest CPU run, S_small the smallest move of a nudge. It prints
-each nudge's S, each loss's sensitivity and error over its tolerance, and
-each gate's worst/tolerance ratio.
+The card-vs-CPU step gate (`check_step_against_cpu`) runs the step in
+f32 on the card first, recording the branch of every sign-dependent call
+(`animeface_tpu_torch/utils/branches.py`), then in float64 replaying those
+branches: three times on the card with the inputs moved by 1e-6, and once
+on the CPU, the reference, in a thread beside the phases that follow
+(`deferred_gates`). From the nudges (`nudged_tolerances`): S, the
+gradients' largest relative L2 move,
+widens the gradients' tolerance to 1e-3 + 2 S of their norm, and each
+loss's own largest move d widens its tolerance to 1e-3 of its value + 2 d
+(both capped at 0.1 of the gradient's norm and of the loss's summands).
+It prints the branches replayed and how many elements the card took the
+other way, each nudge's S, each loss's sensitivity and error over its
+tolerance, and each gate's worst/tolerance ratio (`GATE <label>: ...`).
+A failing phase is named on stderr (`chip_smoke: phase <name> failed`).
 Imports nothing of JAX or of the JAX package.
 '''
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import contextvars
 import json
 import subprocess
 import sys
-import threading
 import time
 from types import SimpleNamespace
 
@@ -250,14 +255,15 @@ IMAGE = 256                    # StyleGAN2-ADA (two-pass warp kernels)
 ADA_IMAGE = 128                # the ADA recipe's default (line-pass kernels)
 ADA_STEPS = 16                 # one R1 cycle: gp_every = 16
 TOL = 1e-4                     # kernel vs plain, abs, f32 unit-scale images
-GATE_WORKERS = 4               # the step gate's CPU runs at a time, beside its card run
 BF16_RTOL = 1.6e-2             # kernel vs plain in bf16, of the output's scale
-#: the algorithms cuDNN's autotuning times for each new convolution of the
-#: main path (PyTorch's default, 10, everywhere else, the f32 step gates'
-#: card runs among them): on an H100 its warm-up took 31.19 s with 3
+#: the algorithms cuDNN's autotuning times for each new convolution (PyTorch's
+#: default is 10): on an H100 the main path's warm-up took 31.19 s with 3
 #: against 45.95-66.28 s with 10 and its cycle the same (1 made the penalty
-#: steps 40% slower); `time_chip_smoke_parts.py limit-paths`, `limit-main`
-MAIN_PATH_BENCHMARK_LIMIT = 3
+#: steps 40% slower), FastGAN's 3.73 s against 17.05 and ADA's 11.01 against
+#: 21.01 (`time_chip_smoke_parts.py limit-paths`, `limit-main`). The f32 step
+#: gates replay the card's branches, so the algorithms the card picks move
+#: no kink
+BENCHMARK_LIMIT = 3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 D_K, G_K = 16, 8
@@ -1294,14 +1300,17 @@ def _check_no_launches(path):
                              f'two-pass fwd/bwd, line fwd/bwd): {counts}')
 
 
-def _to(obj, device):
-    '''Tensors in nested dicts, lists and tuples, on `device`.'''
+def _to(obj, device, dtype=None):
+    '''Tensors in nested dicts, lists and tuples, on `device`; with `dtype`,
+    the floating-point ones as copies in it.'''
     if isinstance(obj, torch.Tensor):
+        if dtype is not None and obj.is_floating_point():
+            return obj.to(device, dtype, copy=True)
         return obj.to(device)
     if isinstance(obj, dict):
-        return {k: _to(v, device) for k, v in obj.items()}
+        return {k: _to(v, device, dtype) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_to(v, device) for v in obj)
+        return type(obj)(_to(v, device, dtype) for v in obj)
     return obj
 
 
@@ -1349,7 +1358,7 @@ def _model_of(key):
 
 
 def nudged_tolerances(want, moved, rtol=1e-3, max_nudged=0.1, loss_scales=None,
-                      zero_grad=None, card=None):
+                      zero_grad=None):
     '''The gate's tolerances from a CPU run and its nudged reruns.
 
     `want` maps keys to float64 tensors of the CPU run; `moved` yields the
@@ -1366,26 +1375,17 @@ def nudged_tolerances(want, moved, rtol=1e-3, max_nudged=0.1, loss_scales=None,
     magnitude of its summands (not of a mean that may be near 0), default
     |loss|.
 
-    Two options, for steps where that rule cannot hold:
-    - `zero_grad`: a gradient whose norm is below `zero_grad` of its
-      model's largest gradient norm is structurally zero (a conv bias that
-      a train-mode BatchNorm follows: f32 rounding on either side, which
-      moves by its whole size). It is left out of S and of the relative
-      check, and the card's must lie within that bound (`zero_grad` of the
-      model's largest norm) of the CPU's in L2.
-    - `card` (the card run's map): the step's gradients are multimodal
-      (each nudge takes a few ReLU kinks the other way or not, so they jump
-      between a few discrete sets, and S counts the jumps). S_small, the
-      smallest move any nudge makes, takes S's place (and its cap), and the
-      card must lie within rtol + 2 S_small of one of the CPU runs, the
-      unmoved one or a nudged one: the run nearest it, whose largest
-      relative L2 distance over the gradients is least.
+    The option `zero_grad`, for steps where that rule cannot hold: a
+    gradient whose norm is below `zero_grad` of its model's largest
+    gradient norm is structurally zero (a conv bias that a train-mode
+    BatchNorm follows: f32 rounding on either side, which moves by its
+    whole size). It is left out of S and of the relative check, and the
+    card's must lie within that bound (`zero_grad` of the model's largest
+    norm) of the CPU's in L2.
 
     Returns dict(S, S_key, per_nudge [(S, key) for each nudge], grad_tol,
     grad_norms {key: norm}, zero_grads {key: bound}, loss_sens {key: d},
-    loss_tol {key: tolerance}); with `card` also S_small, nearest (0 the
-    unmoved run, k the k-th nudge) and near {key: the card's L2 distance
-    from that run over the norm}.'''
+    loss_tol {key: tolerance}).'''
     loss_scales = loss_scales or {}
     grads = [k for k in want if k.startswith('grad')]
     losses = [k for k in want if k.startswith('loss')]
@@ -1403,17 +1403,13 @@ def nudged_tolerances(want, moved, rtol=1e-3, max_nudged=0.1, loss_scales=None,
         return {k: float((a[k] - b[k]).norm()) / norms[k] for k in held}
 
     per_nudge, loss_sens = [], dict.fromkeys(losses, 0.0)
-    near = None if card is None else [rel_l2(card, want)]
     for m in moved:
         per_nudge.append(max(((v, k) for k, v in rel_l2(m, want).items()), default=(0.0, '')))
         for key in losses:
             loss_sens[key] = max(loss_sens[key], float((m[key] - want[key]).abs().max()))
-        if near is not None:
-            near.append(rel_l2(card, m))
     S = max(per_nudge, default=(0.0, ''))
-    spread = S if card is None else min(per_nudge, default=(0.0, ''))
-    if spread[0] > max_nudged:
-        raise AssertionError(f'a nudge of the inputs moves {spread[1]} by {spread[0]:.3e} of its '
+    if S[0] > max_nudged:
+        raise AssertionError(f'a nudge of the inputs moves {S[1]} by {S[0]:.3e} of its '
                              'norm on the CPU: too sensitive to hold the card against')
     loss_tol = {}
     for key in losses:
@@ -1424,19 +1420,15 @@ def nudged_tolerances(want, moved, rtol=1e-3, max_nudged=0.1, loss_scales=None,
                                  f'summand scale of {scale:.3e}: too sensitive to hold the card '
                                  'against')
         loss_tol[key] = rtol * size + 2 * loss_sens[key]
-    tols = dict(S=S[0], S_key=S[1], per_nudge=per_nudge, grad_tol=rtol + 2 * spread[0],
+    return dict(S=S[0], S_key=S[1], per_nudge=per_nudge, grad_tol=rtol + 2 * S[0],
                 grad_norms=norms, zero_grads=zero, loss_sens=loss_sens, loss_tol=loss_tol)
-    if near is not None:
-        nearest = min(range(len(near)), key=lambda i: max(near[i].values(), default=0.0))
-        tols.update(S_small=spread[0], nearest=nearest, near=near[nearest])
-    return tols
 
 
 def gate_ratios(card, want, tols):
     '''Each loss's and gradient's error on the card over its tolerance from
     `nudged_tolerances` (above 1 fails): a loss's absolute error, a
     structurally zero gradient's L2 error, any other gradient's L2 error
-    relative to its norm (from the nearest CPU run where `tols` has one).'''
+    relative to its norm.'''
     out = {}
     for key, w in want.items():
         if key.startswith('loss'):
@@ -1444,8 +1436,7 @@ def gate_ratios(card, want, tols):
         elif key in tols['zero_grads']:
             err, tol = float((card[key] - w).norm()), tols['zero_grads'][key]
         elif key.startswith('grad'):
-            err = (tols['near'][key] if 'near' in tols
-                   else float((card[key] - w).norm()) / tols['grad_norms'][key])
+            err = float((card[key] - w).norm()) / tols['grad_norms'][key]
             tol = tols['grad_tol']
         else:
             continue
@@ -1464,32 +1455,101 @@ def _print_loss_gate(label, want, tols, ratios):
     return max((ratios[k] for k in keys), default=0.0)
 
 
+class DeferredGates:
+    '''The step gates' CPU references, run one at a time in a thread of
+    their own while the run goes on (`deferred_gates`). Each gate's card runs
+    are done when it is submitted; `drain()` waits for every reference in
+    order and raises the first gate's error, named with the phase that
+    submitted it.'''
+
+    def __init__(self):
+        self.pool = concurrent.futures.ThreadPoolExecutor(1)
+        self.pending = []
+
+    def submit(self, label, reference):
+        self.pending.append((_PHASE.get(), label, self.pool.submit(reference)))
+
+    def drain(self):
+        try:
+            for name, label, future in self.pending:
+                try:
+                    future.result()
+                except BaseException as e:
+                    print(f'chip_smoke: phase {name} failed: {label} gate: {type(e).__name__}: '
+                          f'{e}', file=sys.stderr, flush=True)
+                    raise
+        finally:
+            self.pool.shutdown(cancel_futures=True)
+
+
+#: the current phase's name (`phase`) and, inside `deferred_gates`, where
+#: the step gates send their CPU references
+_PHASE = contextvars.ContextVar('phase', default='')
+_DEFERRED = contextvars.ContextVar('deferred_gates', default=None)
+
+
+@contextlib.contextmanager
+def deferred_gates():
+    '''Inside, `check_step_against_cpu` hands its float64 CPU reference to
+    a `DeferredGates` and returns None; on leaving, every reference is
+    waited for (the first failure raises).'''
+    gates = DeferredGates()
+    token = _DEFERRED.set(gates)
+    try:
+        yield gates
+    except BaseException:
+        gates.pool.shutdown(wait=False, cancel_futures=True)
+        raise
+    finally:
+        _DEFERRED.reset(token)
+    gates.drain()
+
+
+def _float64(module):
+    '''`module` in float64, its compute dtype too (the gate's reference runs).'''
+    module = module.double()
+    for m in module.modules():
+        if getattr(m, 'dtype', None) == torch.float32:
+            m.dtype = torch.float64
+    return module
+
+
 def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev, batch=2,
                            rtol=1e-3, nudge=1e-6, max_nudged=0.1, nudges=3, zero_grad=None,
-                           nearest=False, make_real=None, d_logits=None, hooked=None):
-    '''One training step at full width in f32 on the card (TF32 off) and on
-    the CPU, from `run`'s weights and buffers (its G, D and G_ema: modules
+                           make_real=None, d_logits=None, hooked=None):
+    '''One training step at full width in float32 on the card (TF32 off)
+    against the same step in float64 on the CPU that takes the card's
+    branches, from `run`'s weights and buffers (its G, D and G_ema: modules
     or state dicts) and the same draws (made on the CPU). Plain SGD on both
     sides, so the G phase sees the same D (an Adam step with beta1 = 0 is
     about lr * sign(g) and would turn a last-bit difference of a near-zero
     gradient into 2 lr).
+    The card's float32 run goes first, under `utils.branches.Branches`,
+    which records the branch of every sign-dependent call (ReLU and leaky
+    ReLU inputs, a hinge, clamps, abs, comparisons, max pooling); the
+    float64 runs replay them, so that where an input lies within f32
+    rounding of a kink both sides differentiate the same side of it (a call
+    sequence that differs from the card's raises).
     Every buffer after the step (spectral norm's u, running statistics,
     moments) must agree to `rtol` of its largest magnitude. A gradient or a
-    loss of such a step moves by more than that when its inputs move at f32
-    rounding (leaky ReLU inputs within rounding of 0 take the other slope;
-    BatchNorm's E[x^2] - E[x]^2 cancels; a mean of two nearly cancelling
-    logits), and by how much varies from tensor to tensor and draw to draw.
-    So the CPU runs the step again `nudges` times, each with the reals and z
+    loss of such a step still moves by more than that when its inputs move
+    at f32 rounding (BatchNorm's E[x^2] - E[x]^2 cancels; a mean of two
+    nearly cancelling logits), by an amount that varies from tensor to
+    tensor and draw to draw. So the step runs again `nudges` times in
+    float64 with the card's branches replayed, each with the reals and z
     moved by `nudge` * N(0, 1) (about 8 ulps of a value near 1) from a
-    generator of its own seed, and `nudged_tolerances` turns what these
-    change into the gradients' S (every gradient within rtol + 2 S of its
-    norm in L2) and each loss's own sensitivity d (within rtol * |loss| +
-    2 d), capped at `max_nudged` of the gradient's norm and of the loss's
-    summands (the largest |output| of D in the CPU step); `zero_grad` and
-    `nearest` (the card against its nearest CPU run) are its options.
-    The runs overlap: the card's in a thread of its own, the CPU's
-    GATE_WORKERS at a time, each worker with its share of the CPU's
-    intra-op threads and its own build of the models.
+    generator of its own seed; these smooth moves are the function's, and
+    run on the card, where float64 costs a second. `nudged_tolerances` turns
+    what they change into the gradients' S (every gradient within rtol + 2 S
+    of its norm in L2) and each loss's own sensitivity d (within rtol *
+    |loss| + 2 d), capped at `max_nudged` of the gradient's norm and of the
+    loss's summands (the largest |output| of D in the CPU step); `zero_grad`
+    is its option. The float64 CPU reference, the run the card is held
+    against, runs on the nudges' models moved to the CPU and takes every
+    intra-op thread; inside `deferred_gates` it runs in a thread of its own
+    while the caller goes on (its step made before, here, so that no
+    recipe function a later phase wraps is read there), and this returns
+    None.
     `build_models(args, device)` returns (G, D, G_ema), G_ema None for a
     recipe without one. A paired recipe's batch is a tuple of images
     (`make_real(args, device, seed)` makes it; every image is nudged) and
@@ -1497,9 +1557,12 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
     output whose largest |value| is the losses' summand scale (default:
     the output's tensors, or those of its tuple or list), and
     `hooked(D)` the modules whose outputs those are (default D itself).
-    Prints S for each nudge, each loss's sensitivity
-    and error over its tolerance, and each gate's worst error over its
-    tolerance; returns those ratios.'''
+    Prints the branches replayed and how many elements the card took the
+    other way, S for each nudge, each loss's sensitivity and error over its
+    tolerance, and each gate's worst error over its tolerance; returns
+    those ratios.'''
+    from animeface_tpu_torch.utils.branches import Branches
+
     f32 = SimpleNamespace(**dict(vars(args), no_bf16=True, batch_size=batch))
     cpu = torch.device('cpu')
     real = (make_real or _real_images)(f32, cpu, seed=5)
@@ -1507,18 +1570,18 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
     states = {name: m if isinstance(m, dict) else m.state_dict()
               for name, m in (('G', run.G), ('D', run.D), ('G_ema', getattr(run, 'G_ema', None)))
               if m is not None}
-    built, run_s = [], {}
-    local = threading.local()
+    run_s = {}
 
-    def step_on(device, seed, key=None):
-        '''The step's losses, gradients and buffers (float64, on the CPU)
-        and the largest |output| of D in it; its seconds go to run_s[key],
-        by default run_s[seed].'''
-        t_run = time.perf_counter()
-        if getattr(local, 'models', None) is None:    # one build a thread, reloaded each run
-            local.models = build_models(f32, device)
-            built.append(local.models)
-        G, D, G_ema = local.models
+    def build(device, dtype):
+        '''G, D and G_ema on `device` in `dtype`.'''
+        return tuple(m if m is None or dtype == torch.float32 else _float64(m)
+                     for m in build_models(f32, device))
+
+    def prepare(models, device, dtype, seed):
+        '''The step on `models` (on `device`, in `dtype`) from `run`'s state,
+        and its inputs: (step, state, images, draws, (G, D)). Made where the
+        caller is, so that the recipe's functions are read there.'''
+        G, D, G_ema = models
         for name, mine in (('G', G), ('D', D), ('G_ema', G_ema)):
             if mine is not None:
                 mine.load_state_dict(states[name])
@@ -1527,93 +1590,129 @@ def check_step_against_cpu(label, build_models, make_step, draw, args, run, dev,
         state = dict(step=0, generator=torch.Generator(device=device).manual_seed(0))
         step = make_step(G, D, G_ema, torch.optim.SGD(G.parameters(), lr=1e-3),
                          torch.optim.SGD(D.parameters(), lr=1e-3))
-        draws = draw(G, real, f32)
-        images = _map_images(torch.clone, real)    # each run its own: the runs overlap
+        draws = _to(draw(G, real, f32), cpu, dtype)
+        images = _to(real, cpu, dtype)
         if seed is not None:
             g = torch.Generator().manual_seed(seed)
-            images = _map_images(lambda x: x + nudge * torch.randn(x.shape, generator=g), real)
+            images = _map_images(
+                lambda x: x + nudge * torch.randn(x.shape, generator=g, dtype=dtype), images)
             if 'z' in draws:
-                draws['z'] = draws['z'] + nudge * torch.randn(draws['z'].shape, generator=g)
+                draws['z'] = draws['z'] + nudge * torch.randn(draws['z'].shape, generator=g,
+                                                              dtype=dtype)
+        return step, state, _to(images, device), _to(draws, device), (G, D)
+
+    def execute(prepared, branches, key):
+        '''The prepared step under `branches`: its losses, gradients and
+        buffers (float64, on the CPU) and the largest |output| of D in it;
+        its seconds go to run_s[key].'''
+        t_run = time.perf_counter()
+        step, state, images, draws, (G, D) = prepared
         sizes = []
         hooks = [m.register_forward_hook(lambda m, i, o: sizes.append(max(
             (float(t.detach().abs().max()) for t in d_logits(o) if isinstance(t, torch.Tensor)),
             default=0.0))) for m in (hooked(D) if hooked else (D,))]
-        metrics = step(state, _to(images, device), _to(draws, device))
-        for hook in hooks:
-            hook.remove()
+        try:
+            with branches:
+                metrics = step(state, images, draws)
+        finally:
+            for hook in hooks:
+                hook.remove()
+        branches.done()
         if isinstance(metrics, tuple):
             metrics = metrics[0]
         got = {f'loss {k}': v.detach().cpu() for k, v in metrics.items()}
         for name, module in (('G', G), ('D', D)):
             got.update({f'grad {name}.{n}': p.grad.cpu() for n, p in module.named_parameters()})
             got.update({f'buffer {name}.{n}': b.cpu() for n, b in module.named_buffers()})
-        run_s[seed if key is None else key] = time.perf_counter() - t_run
+        run_s[key] = time.perf_counter() - t_run
         return {k: v.double() for k, v in got.items()}, max(sizes, default=0.0)
 
-    # the card run in a thread of its own and the CPU runs GATE_WORKERS at
-    # a time, the CPU's intra-op threads shared out among them
+    # on the card: the float32 run recording its branches, then the float64
+    # nudges replaying them (no autotuning of the float64 shapes); the
+    # reference's step is made here too, on the float64 models moved to the
+    # CPU, and only run in the reference's thread
     t0 = time.perf_counter()
-    workers = min(GATE_WORKERS, 1 + nudges)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(max(1, threads // workers))
+    record = Branches()
+    card, _ = execute(prepare(build(dev, torch.float32), dev, torch.float32, None), record,
+                      'card')
+    models = build(dev, torch.float64)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
     try:
-        with concurrent.futures.ThreadPoolExecutor(1) as card_pool, \
-                concurrent.futures.ThreadPoolExecutor(workers) as pool:
-            card_run = card_pool.submit(step_on, dev, None, 'card')
-            want_run = pool.submit(step_on, cpu, None)
-            moved = pool.map(lambda k: step_on(cpu, 7 + k)[0], range(nudges))
-            want, d_size = want_run.result()
-            try:
-                tols = nudged_tolerances(want, moved, rtol, max_nudged,
-                                         {k: d_size for k in want if k.startswith('loss')},
-                                         zero_grad, card_run.result()[0] if nearest else None)
-            except AssertionError as e:
-                raise AssertionError(f'{label}: {e}') from None
-            card, _ = card_run.result()
+        moved = [execute(prepare(models, dev, torch.float64, 7 + k),
+                         Branches(replay=record.taken), 7 + k)[0] for k in range(nudges)]
     finally:
-        torch.set_num_threads(threads)
-        built.clear()
-    print(f'{label} f32 step: S per nudge (seeds 7-{6 + nudges}) '
-          + ', '.join(f'{v:.3e} ({k})' for v, k in tols['per_nudge']))
-    if nearest:
-        print(f'{label} gradients, multimodal: S_small {tols["S_small"]:.3e}; the card lies '
-              'nearest ' + (f'nudge {tols["nearest"]} (seed {6 + tols["nearest"]})'
-                            if tols['nearest'] else 'the unmoved CPU run'))
-    gated = gate_ratios(card, want, tols)
-    loss_ratio = _print_loss_gate(label, want, tols, gated)
-    zero, tol = tols['zero_grads'], tols['grad_tol']
-    held = [k for k in want if k.startswith('grad') and k not in zero]
-    worst = {'buffer max': (0.0, ''),
-             'grad l2': max(((gated[k] * tol, k) for k in held), default=(0.0, '')),
-             'nudged grad l2 (S)': (tols['S'], tols['S_key'])}
-    bad = []
-    for key, w in want.items():
-        if key in gated:
-            ok = gated[key] <= 1
-        else:
-            rel = float((card[key] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-            worst['buffer max'] = max(worst['buffer max'], (rel, key))
-            ok = rel <= rtol
-        if not (ok and bool(torch.isfinite(card[key]).all())):
-            bad.append(key)
-    ratios = {'loss': loss_ratio, 'buffer': worst['buffer max'][0] / rtol,
-              'grad': worst['grad l2'][0] / tol}
-    if zero:
-        ratios['zero grad'] = max(gated[k] for k in zero)
-        print(f'{label}: {len(zero)} structurally zero gradients (below {zero_grad} of their '
-              f'model\'s largest norm) left out of S, each within that bound of the CPU\'s: '
-              f'worst err/bound {ratios["zero grad"]:.3f}')
-    print(f'{label} f32 step, card vs CPU, batch {batch}, {len(want)} tensors; worst '
-          + ', '.join(f'{k} {v[0]:.3e} ({v[1]})' for k, v in worst.items())
-          + f'; gradient tol {tol:.3e} of the norm; worst/tol: loss {ratios["loss"]:.3f}, '
-          f'buffer {ratios["buffer"]:.3f}, grad {ratios["grad"]:.3f}; '
-          f'{time.perf_counter() - t0:.2f} s (the card run {run_s["card"]:.2f} s, the CPU runs '
-          + ', '.join(f'{run_s[k]:.2f}' for k in [None, *(7 + k for k in range(nudges))])
-          + f' s, builds included, {workers} at a time)')
-    if bad:
-        raise AssertionError(f'{label}: on the card, {len(bad)} tensors disagree with the CPU: '
-                             + ', '.join(bad[:12]))
-    return ratios
+        torch.backends.cudnn.benchmark = benchmark
+    taken = record.on(cpu)
+    del record
+    reference_step = prepare(tuple(None if m is None else m.to(cpu) for m in models), cpu,
+                             torch.float64, None)
+    del models
+    t_card = time.perf_counter() - t0
+
+    def reference():
+        '''The float64 CPU run replaying the card's branches; holds the card
+        against it and prints the gate (docstring).'''
+        t1 = time.perf_counter()
+        unmoved = Branches(replay=taken)
+        want, d_size = execute(reference_step, unmoved, 'cpu')
+        try:
+            tols = nudged_tolerances(want, moved, rtol, max_nudged,
+                                     {k: d_size for k in want if k.startswith('loss')}, zero_grad)
+        except AssertionError as e:
+            raise AssertionError(f'{label}: {e}') from None
+        kinds = {}
+        for b in taken:
+            kinds[b.op] = kinds.get(b.op, 0) + 1
+        print(f'{label} f32 step: the card\'s {len(taken)} branching calls ('
+              + ', '.join(f'{k} {v}' for k, v in kinds.items())
+              + f'; {sum(b.taken.numel() for b in taken)} elements) replayed in float64; the '
+              f'card took {unmoved.flips} of them the other way from the CPU\'s own')
+        print(f'{label} f32 step: S per nudge (seeds 7-{6 + nudges}, float64 on the card) '
+              + ', '.join(f'{v:.3e} ({k})' for v, k in tols['per_nudge']))
+        gated = gate_ratios(card, want, tols)
+        loss_ratio = _print_loss_gate(label, want, tols, gated)
+        zero, tol = tols['zero_grads'], tols['grad_tol']
+        held = [k for k in want if k.startswith('grad') and k not in zero]
+        worst = {'buffer max': (0.0, ''),
+                 'grad l2': max(((gated[k] * tol, k) for k in held), default=(0.0, '')),
+                 'nudged grad l2 (S)': (tols['S'], tols['S_key'])}
+        bad = []
+        for key, w in want.items():
+            if key in gated:
+                ok = gated[key] <= 1
+            else:
+                rel = float((card[key] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                worst['buffer max'] = max(worst['buffer max'], (rel, key))
+                ok = rel <= rtol
+            if not (ok and bool(torch.isfinite(card[key]).all())):
+                bad.append(key)
+        ratios = {'loss': loss_ratio, 'buffer': worst['buffer max'][0] / rtol,
+                  'grad': worst['grad l2'][0] / tol}
+        if zero:
+            ratios['zero grad'] = max(gated[k] for k in zero)
+            print(f'{label}: {len(zero)} structurally zero gradients (below {zero_grad} of '
+                  f'their model\'s largest norm) left out of S, each within that bound of the '
+                  f'CPU\'s: worst err/bound {ratios["zero grad"]:.3f}')
+        print(f'{label} f32 step, card vs CPU, batch {batch}, {len(want)} tensors; worst '
+              + ', '.join(f'{k} {v[0]:.3e} ({v[1]})' for k, v in worst.items())
+              + f'; gradient tol {tol:.3e} of the norm; worst/tol: loss {ratios["loss"]:.3f}, '
+              f'buffer {ratios["buffer"]:.3f}, grad {ratios["grad"]:.3f}; on the card '
+              f'{t_card:.2f} s (the f32 run {run_s["card"]:.2f} s, the float64 nudges '
+              + ', '.join(f'{run_s[7 + k]:.2f}' for k in range(nudges))
+              + f' s, the builds included), the CPU reference {time.perf_counter() - t1:.2f} s '
+              f'(its run {run_s["cpu"]:.2f} s)')
+        print(f'GATE {label}: worst/tol {max(ratios.values()):.3f}')
+        if bad:
+            raise AssertionError(f'{label}: on the card, {len(bad)} tensors disagree with the '
+                                 'CPU: ' + ', '.join(bad[:12]))
+        return ratios
+
+    deferred = _DEFERRED.get()
+    if deferred is None:
+        return reference()
+    deferred.submit(label, reference)
+    return None
 
 
 def run_cips_train_path(dev, card, **overrides):
@@ -1678,7 +1777,6 @@ def run_fastgan_path(dev, card, **overrides):
     against the CPU. Returns the 16 steps' images/s and the gate's
     worst/tolerance ratios.'''
     from animeface_tpu_torch.implementations.FastGAN import utils as fu
-    from animeface_tpu_torch.nnutils.loss import HingeLoss
 
     args = fu.default_args(**dict(dict(image_size=IMAGE), **overrides))
     print('FastGAN args:', json.dumps(vars(args)))
@@ -1695,14 +1793,21 @@ def run_fastgan_path(dev, card, **overrides):
     if images.shape != (args.num_test, args.image_channels, size, size) \
             or not bool(torch.isfinite(images).all()):
         raise AssertionError('FastGAN samples are not finite or have the wrong shape')
-    ratios = check_step_against_cpu(
+    return args.batch_size * ADA_STEPS / dt, check_fastgan_step_against_cpu(args, run, dev)
+
+
+def check_fastgan_step_against_cpu(args, run, dev):
+    '''FastGAN's f32 step on the card against the CPU from `run`'s models.'''
+    from animeface_tpu_torch.implementations.FastGAN import utils as fu
+    from animeface_tpu_torch.nnutils.loss import HingeLoss
+
+    return check_step_against_cpu(
         'FastGAN', lambda a, d: fu.build_models(a, d),
         lambda G, D, G_ema, g_opt, d_opt: fu.build_train_step(
             G, D, G_ema, g_opt, d_opt, HingeLoss(), args.policy, args.ema),
         lambda G, real, a: fu.draw_step_inputs(G, real, torch.Generator().manual_seed(6),
                                                a.policy),
         args, run, dev)
-    return args.batch_size * ADA_STEPS / dt, ratios
 
 
 def run_stylegan2_diffaugment_path(dev, card, **overrides):
@@ -1787,13 +1892,18 @@ CLI_RUNS = {
     'pix2pixHD': (('--image-size', '64', '--num-images', '64', '--fine-from', '1'), 5, 4, 6,
                   (1, 3)),
     'CycleGAN': (('--image-size', '64'), 5, 4, 6, (1, 3)),
+    # SPADE's second D scale and SCFT's VALID D need 128px
+    'normalizations': (('--image-size', '64'), 5, 4, 6, (1, 3)),
+    'SPADE': ((), 5, 4, 6, (1, 3)),
+    'SCFT': ((), 5, 4, 6, (1, 3)),
 }
 #: the sample grids of the recipes that set them: (images, images a row)
 CLI_GRIDS = {'DCGAN': (16, 4), 'GAN': (16, 4), 'WGAN': (25, 5), 'WGAN_gp': (25, 5),
              'CIPS': (16, 4), 'FastGAN': (16, 4), 'BigGAN': (16, 4), 'SEBigGAN': (16, 4),
              'TransGAN': (16, 4), 'HiT': (16, 4), 'ConvNeXt': (16, 4), 'VAN': (16, 4),
              'pix2pix': (12, 6), 'SRGAN': (18, 9), 'ESRGAN': (18, 9), 'NAFNet': (12, 6),
-             'Restormer': (12, 6), 'pix2pixHD': (12, 6), 'CycleGAN': (12, 4)}
+             'Restormer': (12, 6), 'pix2pixHD': (12, 6), 'CycleGAN': (12, 4),
+             'normalizations': (12, 6), 'SPADE': (18, 6), 'SCFT': (27, 6)}
 
 
 def _variant_recorder(module, seen):
@@ -2120,13 +2230,6 @@ def _last_checkpoint(out):
         return state, json.load(f)['args']
 
 
-#: nudges of WGAN-gp's gate. Its step's gradients are multimodal: over 40
-#: CPU nudges at 64px, 14 moved them by 4.5e-6 of their norm and 26 by one
-#: of four levels from 4.1e-3 to 2.9e-2 (ReLU kinks crossed), so its card
-#: run is held against the nearest CPU run (`nudged_tolerances` with
-#: `card`), and the nudges must reach the kinks that the card's rounding
-#: may take; a CPU step there is about 0.1 s
-WGAN_GP_NUDGES = 64
 #: BigGAN's and SEBigGAN's gates: a gradient below this share of its
 #: model's largest norm is structurally zero (`nudged_tolerances`'
 #: `zero_grad`): a conv bias that a train-mode BatchNorm follows lay at
@@ -2139,8 +2242,7 @@ def check_cli_step_against_cpu(recipe, out, dev):
     '''The f32 step on the card against the CPU at batch 2
     (`check_step_against_cpu`), from the weights and buffers of the CLI
     run's last checkpoint under `out`: DCGAN's (its only variant);
-    WGAN-gp's full step (the penalty's double backward included) against
-    its nearest CPU run over WGAN_GP_NUDGES nudges; BigGAN's, and
+    WGAN-gp's full step (the penalty's double backward included); BigGAN's, and
     SEBigGAN's ICR step (its draws z and n; the nudges move z and the
     reals), with their structurally zero gradients left out of S
     (ZERO_GRAD).'''
@@ -2162,7 +2264,6 @@ def check_cli_step_against_cpu(recipe, out, dev):
                 return du.build_train_step(G, D, g_opt, d_opt, GANLoss())
         else:
             args = module.default_args(**sizes, gp_gamma=float(ran['gp_gamma']))
-            gate = dict(nudges=WGAN_GP_NUDGES, nearest=True)
 
             def make_step(G, D, G_ema, g_opt, d_opt):
                 return module.build_steps(G, D, g_opt, d_opt, WGANLoss(), args.gp_gamma)['full']
@@ -3097,7 +3198,8 @@ def run_simple_gan_phase(recipe, dev, card, overrides=None):
     others at 128px; `SIMPLE_GAN_DIRECT`; cuDNN autotunes in the warm-up
     where the recipe's CLI does, not for ConvNeXt and VAN (their
     `AUTOTUNE`); the models' FLOP, ms a step, images/s, peak memory, no
-    hand-written kernel launched, one profiled step), the CLI with its
+    hand-written kernel launched, one profiled step but for ConvNeXt and
+    VAN), the CLI with its
     resume beside the direct images/s (`run_cli_path`; TransGAN at 32px,
     ConvNeXt and VAN at 64px, without them), the f32 step on the card
     against the CPU from the CLI's checkpoint. Prints each part's
@@ -3112,8 +3214,10 @@ def run_simple_gan_phase(recipe, dev, card, overrides=None):
     try:
         torch.cuda.empty_cache()
         t = time.perf_counter()
+        # no profile of ConvNeXt's and VAN's R1 steps (130k launches a VAN
+        # step: about 20 s of the run for a breakdown PERF.md holds)
         direct = run_direct_steps(recipe, dev, card, steps, warmup, overrides=direct_overrides,
-                                  flop=simple_gan_flop, profile=True)
+                                  flop=simple_gan_flop, profile=recipe not in ('ConvNeXt', 'VAN'))
         parts['direct'] = time.perf_counter() - t
         torch.cuda.empty_cache()
         t = time.perf_counter()
@@ -3292,18 +3396,26 @@ def run_paired_phase(recipe, dev, card):
 
 #: the line-art recipes of the xdog task on the paired runtime
 #: (`nnutils/paired.py`): NAFNet and Restormer on NAFNet's restoration
-#: step, pix2pixHD in two invocations, CycleGAN with spectral norm
-LINE_ART = ('NAFNet', 'Restormer', 'pix2pixHD', 'CycleGAN')
+#: step, pix2pixHD in two invocations, CycleGAN with spectral norm;
+#: normalizations (its default 'in'), SPADE (its encoder, spectral norm
+#: and BatchNorm on) and SCFT (the TPS warp, the triplet loss)
+LINE_ART = ('NAFNet', 'Restormer', 'pix2pixHD', 'CycleGAN', 'normalizations', 'SPADE', 'SCFT')
 LINE_ART_DIRECT = (2, 5)         # direct steps at the CLI's 128px default: warm-up, timed
 LINE_ART_IMAGE = 128
-#: forwards' worth of one G and one D in a step, a backward as two. The
-#: restoration step: G 1 (the D phase, no grad) + 3; D 2 + 4 in the D
-#: phase, 1 + 1 in the G phase (its parameters frozen: the input gradient
-#: alone). pix2pixHD's fine step: D once more in the G phase (the real
-#: pair's features, no grad). CycleGAN, for each G: 1 in the D phase, 3 for
-#: its fake and 3 for its cycle reconstruction; each D as the restoration D
-LINE_ART_FORWARDS = {'NAFNet': (4, 8), 'Restormer': (4, 8), 'pix2pixHD': (4, 9),
-                     'CycleGAN': (7, 8)}
+#: forwards' worth of one G, one D and the VGG16 trunk in a step, a
+#: backward as two. The restoration step: G 1 (the D phase, no grad) + 3;
+#: D 2 + 4 in the D phase, 1 + 1 in the G phase (its parameters frozen: the
+#: input gradient alone). pix2pixHD's fine step: D once more in the G phase
+#: (the real pair's features, no grad). CycleGAN, for each G: 1 in the D
+#: phase, 3 for its fake and 3 for its cycle reconstruction; each D as the
+#: restoration D. normalizations: VGG on the image and on the fake (1 + 2)
+#: for the style and again for the content loss (on the line art; computed
+#: at content_lambda 0 too). SPADE (G with E): D's real pair once more in
+#: the G phase. SCFT: G 1 + 2 x 3 (its positive and negative references);
+#: VGG 1 + 3 for the style and again for the perceptual loss
+LINE_ART_FORWARDS = {'NAFNet': (4, 8, 0), 'Restormer': (4, 8, 0), 'pix2pixHD': (4, 9, 0),
+                     'CycleGAN': (7, 8, 0), 'normalizations': (4, 8, 8), 'SPADE': (4, 9, 0),
+                     'SCFT': (7, 8, 8)}
 
 
 def line_art_flop(run, args):
@@ -3320,19 +3432,32 @@ def line_art_flop(run, args):
                                       run.G['G_ba'](line, train=False)))
             d = forward_flop(lambda: (run.D['D_a'](image, train=False),
                                       run.D['D_b'](line, train=False)))
+        elif args.name == 'SPADE':
+            z = torch.zeros(1, args.z_dim, device=dev)
+            g = forward_flop(lambda: (run.G['G'](z, line, train=False),
+                                      run.G['E'](image, z, train=False)))
+            d = forward_flop(lambda x: run.D(x, train=False), torch.cat([image, line], dim=1))
+        elif args.name in ('normalizations', 'SCFT'):
+            g = forward_flop(lambda: run.G(line, image, train=False))
+            d = forward_flop(lambda x: run.D(x, train=False),
+                             image if args.name == 'normalizations'
+                             else torch.cat([line, image], dim=1))
         elif args.name == 'pix2pixHD':
             g = forward_flop(run.G, line)
             d = forward_flop(run.D, torch.cat([line, image], dim=1))
         else:
             g = forward_flop(run.G, line)
             d = forward_flop(lambda x: run.D(x, train=False), torch.cat([image, line], dim=1))
+        v = forward_flop(run.vgg.model, image) if hasattr(run, 'vgg') else 0
     finally:
         torch.backends.cudnn.benchmark = benchmark
-    fg, fd = LINE_ART_FORWARDS[args.name]
-    flop = args.batch_size * (fg * g + fd * d)
+    fg, fd, fv = LINE_ART_FORWARDS[args.name]
+    flop = args.batch_size * (fg * g + fd * d + fv * v)
     params = sum(p.numel() for p in run.G.parameters())
-    print(f'{args.name}: G forward {g / 2e9:.2f} GMAC, D forward {d / 2e9:.2f} GMAC a sample'
+    print(f'{args.name}: G forward {g / 2e9:.2f} GMAC, D forward {d / 2e9:.2f} GMAC'
+          + (f', VGG16 forward {v / 2e9:.2f} GMAC (f32)' if v else '') + ' a sample'
           + (' (both Gs, both Ds)' if args.name == 'CycleGAN' else '')
+          + (' (G with E)' if args.name == 'SPADE' else '')
           + f'; G {params / 1e6:.1f}M parameters; a step {flop / 1e12:.3f} TFLOP at batch '
           f'{args.batch_size}')
     return flop
@@ -3345,17 +3470,48 @@ def check_line_art_step_against_cpu(recipe, out, dev):
     every image nudged): NAFNet's and Restormer's restoration step,
     pix2pixHD's local fine step (everything trained; the global G's image
     head, which the local image never reads, has a zero gradient), CycleGAN's
-    step with spectral norm on (S over both Ds' logits); conv biases that
-    an instance norm, a group norm or a train-mode BatchNorm follows are
+    step with spectral norm on (S over both Ds' logits); normalizations'
+    (DiffAugment 'color' and VGG16 on both devices, S over D's logits),
+    SPADE's (its encoder's noise the draw z, S over D's logits) and SCFT's
+    (DiffAugment, the TPS offsets, VGG16 with p=1); conv biases that an
+    instance norm, a group norm or a train-mode BatchNorm follows are
     structurally zero (ZERO_GRAD)."""
     from animeface_tpu_torch.implementations.NAFNet import utils as nafnet
-    from animeface_tpu_torch.nnutils.loss import LSGANLoss
+    from animeface_tpu_torch.nnutils.loss import HingeLoss, LSGANLoss
+    from animeface_tpu_torch.nnutils.loss.vgg import VGGLoss
 
     state, ran = _last_checkpoint(out)
     module = _recipe_module(recipe)
     args = module.default_args(image_size=int(ran['image_size']))
     d_logits = hooked = None
-    if recipe in ('NAFNet', 'Restormer'):
+
+    def draw(G, real, a):
+        return {}
+    if recipe in ('normalizations', 'SCFT'):
+        vggs = {d.type: VGGLoss(d, vgg=16, p=1 if recipe == 'SCFT' else 2)
+                for d in (torch.device('cpu'), dev)}
+        weights = ((args.recon_lambda, args.style_lambda, args.content_lambda)
+                   if recipe == 'normalizations' else
+                   (args.recon_lambda, args.style_lambda, args.perc_lambda, args.triplet_lambda,
+                    args.margin))
+
+        def make_step(G, D, G_ema, g_opt, d_opt):
+            return module.build_train_step(G, D, g_opt, d_opt, LSGANLoss(),
+                                           vggs[next(G.parameters()).device.type], *weights)
+
+        def draw(G, real, a):
+            return module.draw_step_inputs(real[0], torch.Generator().manual_seed(6))
+    if recipe in ('normalizations', 'SPADE'):
+        def d_logits(outs):
+            return [logits for logits, _ in outs]
+    if recipe == 'SPADE':
+        def make_step(G, D, G_ema, g_opt, d_opt):
+            return module.build_train_step(G, D, g_opt, d_opt, HingeLoss(), args.feat_lambda,
+                                           args.kld_lambda)
+
+        def draw(G, real, a):
+            return module.draw_step_inputs(G, real[0], torch.Generator().manual_seed(6))
+    elif recipe in ('NAFNet', 'Restormer'):
         def make_step(G, D, G_ema, g_opt, d_opt):
             return nafnet.build_restoration_step(G, D, g_opt, d_opt, LSGANLoss(),
                                                  args.pixel_lambda)
@@ -3366,7 +3522,7 @@ def check_line_art_step_against_cpu(recipe, out, dev):
 
         def d_logits(outs):
             return [logits for logits, _ in outs]
-    else:
+    elif recipe == 'CycleGAN':
         def make_step(G, D, G_ema, g_opt, d_opt):
             return module.build_train_step(G, D, g_opt, d_opt, LSGANLoss(), args.cycle_lambda)
 
@@ -3374,8 +3530,8 @@ def check_line_art_step_against_cpu(recipe, out, dev):
             return D['D_a'], D['D_b']
     return check_step_against_cpu(
         f'{recipe} {args.image_size}px', lambda a, d: module.build_models(a, d), make_step,
-        lambda G, real, a: {}, args, SimpleNamespace(G=state['G'], D=state['D']), dev,
-        zero_grad=ZERO_GRAD, make_real=paired_batch, d_logits=d_logits, hooked=hooked)
+        draw, args, SimpleNamespace(G=state['G'], D=state['D']), dev, zero_grad=ZERO_GRAD,
+        make_real=paired_batch, d_logits=d_logits, hooked=hooked)
 
 
 def _pix2pixhd_recorder(seen):
@@ -3455,11 +3611,13 @@ def run_pix2pixhd_cli(card):
 def run_line_art_phase(recipe, dev, card):
     """One line-art recipe: the direct steps of `build_training` at the CLI's
     128px defaults (full width, batch 32, bf16, no cuDNN autotuning as the
-    recipe's CLI; pix2pixHD's local fine step) on one batch (`LINE_ART_DIRECT`; the models' FLOP, ms a step, images/s,
+    recipe's CLI; pix2pixHD's local fine step) on one batch
+    (`LINE_ART_DIRECT`; the models' FLOP, ms a step, images/s,
     TFLOP/s, peak memory, no hand-written kernel launched, one profiled
-    step), the CLI with its resume at 64px (`run_cli_path`; pix2pixHD both
-    invocations, `run_pix2pixhd_cli`), the f32 step on the card against the
-    CPU. Prints each part's seconds."""
+    step), the CLI with its resume at `CLI_RUNS`' size (64px; SPADE's and
+    SCFT's 128px: `run_cli_path`; pix2pixHD both invocations,
+    `run_pix2pixhd_cli`), the f32 step on the card against the CPU. Prints
+    each part's seconds."""
     parts = {}
     warmup, steps = LINE_ART_DIRECT
     overrides = dict(image_size=LINE_ART_IMAGE, **({'fine_from': 0} if recipe == 'pix2pixHD'
@@ -3561,6 +3719,22 @@ def main() -> int:
         return run_all()
 
 
+@contextlib.contextmanager
+def phase(name):
+    '''Names the phase on stderr when the code inside raises; the error
+    goes on (the run exits nonzero). A step gate deferred inside it carries
+    its name (`DeferredGates`).'''
+    token = _PHASE.set(name)
+    try:
+        yield
+    except BaseException as e:
+        print(f'chip_smoke: phase {name} failed: {type(e).__name__}: {e}', file=sys.stderr,
+              flush=True)
+        raise
+    finally:
+        _PHASE.reset(token)
+
+
 def run_all() -> int:
     from animeface_tpu_torch import _build, resolve_device
 
@@ -3571,134 +3745,157 @@ def run_all() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True     # autotune conv algorithms in the warm-up
+    torch.backends.cudnn.benchmark_limit = BENCHMARK_LIMIT
     print(f'torch {torch.__version__}  cuda {torch.version.cuda}  '
           f'{torch.cuda.get_device_name(0)}')
 
-    t0 = time.perf_counter()
-    reports = _build.build_all()
-    print(f'kernel build: {time.perf_counter() - t0:.2f} s')
-    for name, report in reports.items():
-        for line in report.splitlines():
-            if 'registers' in line or 'spill' in line:
-                print(f'  {name}: {line.strip()}')
+    with phase('kernel build'):
+        t0 = time.perf_counter()
+        reports = _build.build_all()
+        print(f'kernel build: {time.perf_counter() - t0:.2f} s')
+        for name, report in reports.items():
+            for line in report.splitlines():
+                if 'registers' in line or 'spill' in line:
+                    print(f'  {name}: {line.strip()}')
 
-    images, G_inv, kernels = check_kernels(dev)
-    check_warp_against_dense(images, G_inv)
-    images, G_inv, line_kernels = check_line_kernels(dev)
-    check_warp_against_dense(images, G_inv)
-    del images, G_inv
+    with phase('warp kernels'):
+        images, G_inv, kernels = check_kernels(dev)
+        check_warp_against_dense(images, G_inv)
+        images, G_inv, line_kernels = check_line_kernels(dev)
+        check_warp_against_dense(images, G_inv)
+        del images, G_inv
 
-    limit = torch.backends.cudnn.benchmark_limit
-    torch.backends.cudnn.benchmark_limit = MAIN_PATH_BENCHMARK_LIMIT
-    try:
-        kernels[0]['launches'], kernels[1]['launches'] = run_main_path(dev, card)
-    finally:
-        torch.backends.cudnn.benchmark_limit = limit
-    torch.cuda.empty_cache()
-    (line_kernels[0]['launches'], line_kernels[1]['launches']), ada_ips = \
-        run_ada_path(dev, card)
-    kernels += line_kernels
-    torch.cuda.empty_cache()
+    # the step gates' float64 CPU references run in a thread of their own
+    # beside the phases that follow theirs; all are waited for at the end
+    with deferred_gates():
+        with phase('main path'):
+            kernels[0]['launches'], kernels[1]['launches'] = run_main_path(dev, card)
+            torch.cuda.empty_cache()
+        with phase('ADA'):
+            (line_kernels[0]['launches'], line_kernels[1]['launches']), ada_ips = \
+                run_ada_path(dev, card)
+            kernels += line_kernels
+            torch.cuda.empty_cache()
 
-    from animeface_tpu_torch.ops import setup_filter
-    fu = setup_filter(np.hanning(12), device=dev)
-    bias_act_entry = check_bias_act_kernel(dev)
-    flrelu_entry = check_filtered_lrelu_kernel(dev, fu)
-    check_grad_refused(dev, fu)
-    flrelu_entry['launches'] = run_flrelu_path(dev, fu)
-    torch.cuda.empty_cache()
-    bias_act_entry['launches'] = run_cips_path(dev, card)
-    kernels += [bias_act_entry, flrelu_entry]
-    torch.cuda.empty_cache()
-    cips_ips = run_cips_train_path(dev, card)
-    torch.cuda.empty_cache()
-    fastgan_ips, _ = run_fastgan_path(dev, card)
-    torch.cuda.empty_cache()
-    sg2_ips = run_stylegan2_diffaugment_path(dev, card)
+        with phase('bias_act and filtered_lrelu'):
+            from animeface_tpu_torch.ops import setup_filter
+            fu = setup_filter(np.hanning(12), device=dev)
+            bias_act_entry = check_bias_act_kernel(dev)
+            flrelu_entry = check_filtered_lrelu_kernel(dev, fu)
+            check_grad_refused(dev, fu)
+            flrelu_entry['launches'] = run_flrelu_path(dev, fu)
+            torch.cuda.empty_cache()
+        with phase('CIPS sampling'):
+            bias_act_entry['launches'] = run_cips_path(dev, card)
+            kernels += [bias_act_entry, flrelu_entry]
+            torch.cuda.empty_cache()
+        with phase('CIPS training'):
+            cips_ips = run_cips_train_path(dev, card)
+            torch.cuda.empty_cache()
+        with phase('FastGAN'):
+            fastgan_ips, _ = run_fastgan_path(dev, card)
+            torch.cuda.empty_cache()
+        with phase('StyleGAN2 + DiffAugment'):
+            sg2_ips = run_stylegan2_diffaugment_path(dev, card)
+            torch.cuda.empty_cache()
 
-    torch.cuda.empty_cache()
-    ada_out, _ = run_cli_path('ADA', card, ada_ips, want_line=(6, 2))
-    torch.cuda.empty_cache()
-    sg2_out, _ = run_cli_path('StyleGAN2', card, sg2_ips)
+        with phase('ADA CLI'):
+            ada_out, _ = run_cli_path('ADA', card, ada_ips, want_line=(6, 2))
+            torch.cuda.empty_cache()
+        with phase('StyleGAN2 CLI'):
+            sg2_out, _ = run_cli_path('StyleGAN2', card, sg2_ips)
 
-    # the other BASELINE configs (StyleGAN3 256px, DCGAN and WGAN-gp 64px,
-    # FastGAN 256px through the CLI), GAN and WGAN on DCGAN's runtime, CIPS
-    torch.cuda.empty_cache()
-    t = time.perf_counter()
-    run_stylegan3_256_path(dev, card)
-    print(f'phase StyleGAN3 256px: {time.perf_counter() - t:.1f} s')
-    for recipe in ('DCGAN', 'WGAN_gp', 'GAN', 'WGAN', 'CIPS', 'FastGAN'):
-        torch.cuda.empty_cache()
+        # the other BASELINE configs (StyleGAN3 256px, DCGAN and WGAN-gp 64px,
+        # FastGAN 256px through the CLI), GAN and WGAN on DCGAN's runtime, CIPS
+        with phase('StyleGAN3 256px'):
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            run_stylegan3_256_path(dev, card)
+            print(f'phase StyleGAN3 256px: {time.perf_counter() - t:.1f} s')
+        for recipe in ('DCGAN', 'WGAN_gp', 'GAN', 'WGAN', 'CIPS', 'FastGAN'):
+            with phase(f'{recipe} CLI'):
+                torch.cuda.empty_cache()
+                t = time.perf_counter()
+                direct = {'CIPS': cips_ips, 'FastGAN': fastgan_ips}.get(recipe)
+                if direct is None:
+                    direct = run_direct_steps(recipe, dev, card)
+                out, _ = run_cli_path(recipe, card, direct)
+                if recipe in ('DCGAN', 'WGAN_gp'):
+                    check_cli_step_against_cpu(recipe, out, dev)
+                print(f'phase {recipe} CLI: {time.perf_counter() - t:.1f} s')
+
+        # the progressive recipes: direct steps at 128px, the CLI through
+        # every phase, PGGAN's kill and resume
+        pggan_out = None
+        for recipe in ('PGGAN', 'StyleGAN'):
+            with phase(recipe):
+                torch.cuda.empty_cache()
+                t = time.perf_counter()
+                run_progressive_steps(recipe, dev, card)
+                torch.cuda.empty_cache()
+                out = run_progressive_cli(recipe, card)
+                if recipe == 'PGGAN':
+                    pggan_out = out
+                    run_progressive_kill_resume(card)
+                print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
+
+        # the BigGAN family at the CLI's 128px defaults: direct steps, the CLI
+        # with its resume, the f32 step on the card against the CPU
+        for recipe in ('BigGAN', 'SEBigGAN'):
+            with phase(recipe):
+                torch.cuda.empty_cache()
+                t = time.perf_counter()
+                run_biggan_phase(recipe, dev, card)
+                print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
+
+        # the simple-GAN recipes (direct steps: TransGAN at 64px, the others at
+        # 128px; the CLIs of TransGAN at 32px, ConvNeXt and VAN at 64px): direct
+        # steps, the CLI with its resume, the f32 step gate; then
+        # generate on the StyleGAN2 CLI run's snapshot
+        for recipe in SIMPLE_GANS:
+            with phase(recipe):
+                t = time.perf_counter()
+                run_simple_gan_phase(recipe, dev, card)
+                print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
+        with phase('generate'):
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            run_generate_path(dev, card, sg2_out)
+            print(f'phase generate: {time.perf_counter() - t:.1f} s')
+
+        # the paired data tasks, then pix2pix (xdog), SRGAN and ESRGAN (sr) at
+        # their CLI's defaults: direct steps, the CLI with its resume, the gate
+        t_paired = time.perf_counter()
+        with phase('data'):
+            run_data_path(dev, card)
+            print(f'phase data: {time.perf_counter() - t_paired:.1f} s')
+        for recipe in PAIRED:
+            with phase(recipe):
+                t = time.perf_counter()
+                run_paired_phase(recipe, dev, card)
+                print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
+        print(f'phases data and paired recipes: {time.perf_counter() - t_paired:.1f} s')
+
+        # the line-art recipes of the xdog task at their CLI's defaults: direct
+        # steps at 128px, the CLI with its resume at 64px (pix2pixHD's two
+        # invocations), the gate
+        t_line_art = time.perf_counter()
+        for recipe in LINE_ART:
+            with phase(recipe):
+                t = time.perf_counter()
+                run_line_art_phase(recipe, dev, card)
+                print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
+        print(f'phases line-art recipes: {time.perf_counter() - t_line_art:.1f} s')
+
+        # the metrics, on the StyleGAN2, ADA and PGGAN CLI runs' snapshots
+        with phase('metrics'):
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            run_metrics_path(dev, card, sg2_out, ada_out, pggan_out)
+            print(f'phase metrics: {time.perf_counter() - t:.1f} s')
         t = time.perf_counter()
-        direct = {'CIPS': cips_ips, 'FastGAN': fastgan_ips}.get(recipe)
-        if direct is None:
-            direct = run_direct_steps(recipe, dev, card)
-        out, _ = run_cli_path(recipe, card, direct)
-        if recipe in ('DCGAN', 'WGAN_gp'):
-            check_cli_step_against_cpu(recipe, out, dev)
-        print(f'phase {recipe} CLI: {time.perf_counter() - t:.1f} s')
-
-    # the progressive recipes: direct steps at 128px, the CLI through
-    # every phase, PGGAN's kill and resume
-    pggan_out = None
-    for recipe in ('PGGAN', 'StyleGAN'):
-        torch.cuda.empty_cache()
-        t = time.perf_counter()
-        run_progressive_steps(recipe, dev, card)
-        torch.cuda.empty_cache()
-        out = run_progressive_cli(recipe, card)
-        if recipe == 'PGGAN':
-            pggan_out = out
-            run_progressive_kill_resume(card)
-        print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
-
-    # the BigGAN family at the CLI's 128px defaults: direct steps, the CLI
-    # with its resume, the f32 step on the card against the CPU
-    for recipe in ('BigGAN', 'SEBigGAN'):
-        torch.cuda.empty_cache()
-        t = time.perf_counter()
-        run_biggan_phase(recipe, dev, card)
-        print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
-
-    # the simple-GAN recipes (direct steps: TransGAN at 64px, the others at
-    # 128px; the CLIs of TransGAN at 32px, ConvNeXt and VAN at 64px): direct
-    # steps, the CLI with its resume, the f32 step gate; then
-    # generate on the StyleGAN2 CLI run's snapshot
-    for recipe in SIMPLE_GANS:
-        t = time.perf_counter()
-        run_simple_gan_phase(recipe, dev, card)
-        print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
-    torch.cuda.empty_cache()
-    t = time.perf_counter()
-    run_generate_path(dev, card, sg2_out)
-    print(f'phase generate: {time.perf_counter() - t:.1f} s')
-
-    # the paired data tasks, then pix2pix (xdog), SRGAN and ESRGAN (sr) at
-    # their CLI's defaults: direct steps, the CLI with its resume, the gate
-    t_paired = time.perf_counter()
-    run_data_path(dev, card)
-    print(f'phase data: {time.perf_counter() - t_paired:.1f} s')
-    for recipe in PAIRED:
-        t = time.perf_counter()
-        run_paired_phase(recipe, dev, card)
-        print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
-    print(f'phases data and paired recipes: {time.perf_counter() - t_paired:.1f} s')
-
-    # the line-art recipes of the xdog task at their CLI's defaults: direct
-    # steps at 128px, the CLI with its resume at 64px (pix2pixHD's two
-    # invocations), the gate
-    t_line_art = time.perf_counter()
-    for recipe in LINE_ART:
-        t = time.perf_counter()
-        run_line_art_phase(recipe, dev, card)
-        print(f'phase {recipe}: {time.perf_counter() - t:.1f} s')
-    print(f'phases line-art recipes: {time.perf_counter() - t_line_art:.1f} s')
-
-    # the metrics, on the StyleGAN2, ADA and PGGAN CLI runs' snapshots
-    torch.cuda.empty_cache()
-    t = time.perf_counter()
-    run_metrics_path(dev, card, sg2_out, ada_out, pggan_out)
-    print(f'phase metrics: {time.perf_counter() - t:.1f} s')
+    print(f'step gates\' CPU references: {time.perf_counter() - t:.1f} s waited for after the '
+          'metrics')
 
     print(f'chip_smoke total: {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))

@@ -116,6 +116,15 @@ REQUIRED = (
     'animeface_tpu_torch.implementations.pix2pixHD.utils',
     'animeface_tpu_torch.implementations.CycleGAN.model',
     'animeface_tpu_torch.implementations.CycleGAN.utils',
+    'animeface_tpu_torch.utils.branches',
+    'animeface_tpu_torch.ops.grid_sample',
+    'animeface_tpu_torch.implementations.normalizations.model',
+    'animeface_tpu_torch.implementations.normalizations.utils',
+    'animeface_tpu_torch.implementations.SPADE.model',
+    'animeface_tpu_torch.implementations.SPADE.utils',
+    'animeface_tpu_torch.implementations.SCFT.model',
+    'animeface_tpu_torch.implementations.SCFT.tps',
+    'animeface_tpu_torch.implementations.SCFT.utils',
 )
 
 

@@ -5,10 +5,11 @@ setting, to size and time its phases:
     python3 time_chip_smoke_parts.py autotune
     python3 time_chip_smoke_parts.py limit-main 10 1 3
     python3 time_chip_smoke_parts.py limit-paths 10 3 10
+    python3 time_chip_smoke_parts.py gates
 
-`line-art`: the four line-art phases (`run_line_art_phase`: NAFNet,
-Restormer, pix2pixHD, CycleGAN) alone in one process, each phase's
-seconds and the total. `autotune`: each line-art recipe's direct steps at
+`line-art`: the line-art phases (`run_line_art_phase`: NAFNet, Restormer,
+pix2pixHD, CycleGAN, normalizations, SPADE, SCFT) alone in one process,
+each phase's seconds and the total. `autotune`: each line-art recipe's direct steps at
 its CLI's 128px defaults with cuDNN's autotuning on, off, on, off in turns
 (`run_direct_steps`: warm-up, ms a step). `limit-main`: for each value of
 cuDNN's `benchmark_limit` (the algorithms autotuning times for each new
@@ -17,7 +18,12 @@ its own (its warm-up, cycle and profiles, the path's seconds); then
 PGGAN's kill lanes at 16px with kills at ckpt-18 and ckpt-21
 (`run_progressive_kill_resume`). `limit-paths`: for each value, one
 process through the main path, ADA, CIPS training, FastGAN and StyleGAN3
-256px (profiles off): each path's warm-up, cycle and seconds. Each run's
+256px (profiles off): each path's warm-up, cycle and seconds. `gates`:
+the f32 step gates that failed now and then before their branches were
+replayed (BigGAN's, SEBigGAN's and WGAN-gp's from their CLI runs,
+FastGAN's from its 256px path), each with cuDNN's autotuning on, then
+off (other convolution algorithms in the card run): each gate's
+worst/tolerance ratio (`GATE` lines) and seconds. Each run's
 result directories go to a temporary directory. Needs one CUDA card;
 imports nothing of JAX.
 '''
@@ -108,6 +114,36 @@ def autotune():
             torch.cuda.empty_cache()
 
 
+def gates():
+    s, dev, card = _setup()
+    s.profile_step = lambda *a, **k: []
+    torch.backends.cudnn.benchmark = True
+    outs = {}
+    for recipe in ('BigGAN', 'SEBigGAN', 'WGAN_gp'):
+        outs[recipe], _ = s.run_cli_path(recipe, card)
+        torch.cuda.empty_cache()
+    from animeface_tpu_torch.implementations.FastGAN import utils as fu
+    args = fu.default_args(image_size=s.IMAGE)
+    run = fu.build_training(args, device=dev, seed=0)
+    real = s._real_images(args, dev)
+    for _ in range(4):
+        run.train_step(run.state, real)
+    for bench in (True, False):
+        torch.backends.cudnn.benchmark = bench
+        for recipe in (*outs, 'FastGAN'):
+            t = time.perf_counter()
+            try:
+                if recipe == 'FastGAN':
+                    s.check_fastgan_step_against_cpu(args, run, dev)
+                else:
+                    s.check_cli_step_against_cpu(recipe, outs[recipe], dev)
+                verdict = 'held'
+            except AssertionError as e:
+                verdict = f'FAILED: {e}'
+            print(f'gate {recipe}, autotuning {bench}: {verdict}, '
+                  f'{time.perf_counter() - t:.1f} s', flush=True)
+
+
 def _processes(code, limits, keep=None):
     for limit in limits:
         t = time.perf_counter()
@@ -139,7 +175,7 @@ def main():
     mode, rest = sys.argv[1], sys.argv[2:]
     with tempfile.TemporaryDirectory(prefix='chip_smoke_parts_') as results:
         os.environ['ANIMEFACE_IMPLEMENTATIONS_DIR'] = results
-        {'line-art': line_art, 'autotune': autotune,
+        {'line-art': line_art, 'autotune': autotune, 'gates': gates,
          'limit-main': lambda: limit_main(rest), 'limit-paths': lambda: limit_paths(rest)}[mode]()
     return 0
 
